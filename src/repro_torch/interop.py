@@ -1,10 +1,11 @@
 """Carry data and state across from the JAX package as plain numpy arrays.
 
-For this system data takes the place of weights: an evolving sequence, an
-anchor query state or an edge block built by ``repro`` is handed over as
-numpy arrays (``np.asarray`` of the JAX arrays) and rebuilt here as the
-port's objects, so both packages compute on the same inputs. Nothing from
-``repro`` is imported.
+For the query engine data takes the place of weights: an evolving
+sequence, an anchor query state or an edge block built by ``repro`` is
+handed over as numpy arrays (``np.asarray`` of the JAX arrays) and rebuilt
+here as the port's objects, so both packages compute on the same inputs.
+GNN parameters cross the same way (``gnn_params_from_arrays``). Nothing
+from ``repro`` is imported.
 """
 
 from __future__ import annotations
@@ -50,3 +51,14 @@ def block_from_arrays(src, dst, w,
     return EdgeBlock(torch.from_numpy(np.array(src, dtype=np.int32)).to(device),
                      torch.from_numpy(np.array(dst, dtype=np.int32)).to(device),
                      torch.from_numpy(np.array(w, dtype=np.float32)).to(device))
+
+
+def gnn_params_from_arrays(tree, device: str | torch.device = "cuda"):
+    """The port's GNN parameters from the JAX package's: a nested dict/list
+    of arrays (``jax.tree.map(np.asarray, params)``) becomes the same tree
+    of float32 tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: gnn_params_from_arrays(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [gnn_params_from_arrays(v, device) for v in tree]
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)

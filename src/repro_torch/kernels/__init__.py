@@ -8,5 +8,6 @@ sources live in ``csrc/`` and are built by ``_build.py`` at first use.
 
 from repro_torch.kernels.edge_relax.ops import edge_relax
 from repro_torch.kernels.edge_relax_multi.ops import relax_multi
+from repro_torch.kernels.segment_reduce.ops import segment_reduce
 
-__all__ = ["edge_relax", "relax_multi"]
+__all__ = ["edge_relax", "relax_multi", "segment_reduce"]

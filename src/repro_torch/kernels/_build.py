@@ -2,10 +2,12 @@
 library, bound with ``ctypes``.
 
 The sources under ``kernels/csrc/`` are compiled at first use into
-``build/kernels/`` at the repository root (listed in ``.gitignore``); the
-library's file name carries a hash of the sources and flags, so an edited
-source is rebuilt and a stale build is never loaded. Nothing is compiled at
-import time: the CPU tests import every module without ``nvcc``.
+``build/kernels/`` at the repository root (listed in ``.gitignore``): one
+``nvcc`` per source, all started together, then one link into a single
+library. The library's file name carries a hash of the sources and flags,
+so an edited source is rebuilt and a stale build is never loaded. Nothing
+is compiled at import time: the CPU tests import every module without
+``nvcc``.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, no ``--use_fast_math`` and no
 ``-ftz=true`` — denormal results must stay visible so the Viterbi combine's
@@ -24,10 +26,10 @@ import subprocess
 import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("relax.cu",)
+SOURCES = ("relax.cu", "segment_reduce.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +40,7 @@ SIGNATURES = {
     "relax_multi_run": (_I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                         _P, _P, _P, _P, _P, _P, _P, _P),
     "edge_relax_run": (_I, _I, _P, _P, _P, _P, _LL, _P, _P, _P),
+    "segment_reduce_run": (_I, _I, _I, _P, _P, _P, _P, _P),
 }
 
 _lib = None
@@ -63,32 +66,47 @@ def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES:
         h.update((CSRC / name).read_bytes())
-    return BUILD_DIR / f"librelax_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libkernels_{h.hexdigest()[:16]}.so"
+
+
+def _run(procs) -> None:
+    """Wait for every ``(cmd, Popen)``; raise with the compiler's output if
+    any failed."""
+    errors = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}"
+                          f"\n{out}{err}")
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def _start(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
 
 
 def build() -> pathlib.Path:
     """Compile the sources if this exact build is missing; returns its path.
 
-    Writes to a temporary name and renames, so concurrent builders never
-    load a half-written file.
+    One ``nvcc -c`` per source runs in parallel, then one link. Everything
+    is written under a temporary directory and the library renamed into
+    place, so concurrent builders never load a half-written file.
     """
     out = library_path()
     if out.is_file():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, pathlib.Path(s).stem + ".o")
+                for s in SOURCES]
+        _run([_start([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / s)])
+              for s, obj in zip(SOURCES, objs)])
+        lib = os.path.join(tmp, out.name)
+        _run([_start([nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs])])
+        os.replace(lib, out)
     return out
 
 
@@ -101,8 +119,8 @@ def load_library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
-        lib.relax_error_string.argtypes = [ctypes.c_int]
-        lib.relax_error_string.restype = ctypes.c_char_p
+        lib.kernels_error_string.argtypes = [ctypes.c_int]
+        lib.kernels_error_string.restype = ctypes.c_char_p
         _lib = lib
     return _lib
 
@@ -110,7 +128,7 @@ def load_library() -> ctypes.CDLL:
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error."""
     if code != 0:
-        msg = lib.relax_error_string(code).decode()
+        msg = lib.kernels_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 

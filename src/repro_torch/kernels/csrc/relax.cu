@@ -291,7 +291,8 @@ int edge_relax_run(int op, int n, const float* values, const int* src, const int
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* relax_error_string(int code) {
+// Shared by every source of the library (kernels/_build.py binds it once).
+const char* kernels_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

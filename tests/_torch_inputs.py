@@ -53,3 +53,17 @@ def state(name, n, seed, lanes, frontier="mixed"):
     else:
         fro = rng.random((lanes, n)) < 0.4
     return vals, parent, fro
+
+
+def messages(n, e, d, seed, *, oob=False):
+    """An [e, d] float32 message stream and int32 segment ids for ``n``
+    segments: segment 1 empty, -0.0/+0.0 and ±inf entries mixed in, and
+    with ``oob`` some ids at the sentinel ``n`` and past it."""
+    rng = np.random.default_rng(seed + 101)
+    data = rng.standard_normal((e, d)).astype(np.float32)
+    for value, share in ((-0.0, 0.05), (0.0, 0.05), (np.inf, 0.01),
+                         (-np.inf, 0.01)):
+        data[rng.random((e, d)) < share] = np.float32(value)
+    seg = rng.integers(0, n + 3 if oob else n, e).astype(np.int32)
+    seg[seg == 1] = 0
+    return data, seg

@@ -1,5 +1,7 @@
-"""The port's CUDA relax kernels held against their plain PyTorch versions
-on a card, bit for bit (min/max reductions are order-free: no tolerance).
+"""The port's CUDA kernels held against their plain PyTorch versions on a
+card, bit for bit: the relax kernels (min/max reductions are order-free)
+and segment_reduce (sums too: kernel and plain version both reduce each
+segment in edge order). No tolerance.
 
 Imports neither jax nor repro, so it runs on a GPU machine without them:
 
@@ -19,9 +21,15 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from _torch_inputs import edges, state, values  # noqa: E402
+from _torch_inputs import edges, messages, state, values  # noqa: E402
 from repro_torch.graph.semiring import ALL_SEMIRINGS  # noqa: E402
-from repro_torch.kernels import edge_relax, relax_multi  # noqa: E402
+from repro_torch.kernels import edge_relax, relax_multi, segment_reduce  # noqa: E402
+from repro_torch.kernels.segment_reduce import (  # noqa: E402
+    gather_rows,
+    segment_layout,
+    segment_reduce_ref,
+)
+from repro_torch.launch import train  # noqa: E402
 from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR, edge_relax_ref  # noqa: E402
 from repro_torch.kernels.edge_relax_multi.ref import relax_multi_ref  # noqa: E402
 
@@ -74,3 +82,59 @@ def test_cuda_relax_multi_matches_plain(cuda_device, name, k, track):
     want = relax_multi_ref(*st, [shared, stacked], allowed, **kw)
     for g, r in zip(got, want):
         assert torch.equal(g, r)
+
+
+def _same_bits(got, want):
+    assert got.shape == want.shape
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["sum", "min", "max"])
+@pytest.mark.parametrize("d", [1, 3, 16, 47, 75, 130])
+def test_cuda_segment_reduce_matches_plain(cuda_device, reduce, d):
+    """Empty segments, sentinel and out-of-range ids, -0.0/±inf entries."""
+    n = 2500
+    data, seg = _on(cuda_device, *messages(n, 60_000, d, seed=d, oob=True))
+    lay = segment_layout(seg, n)
+    before = segment_reduce.launches
+    got = segment_reduce(data, seg, num_segments=n, reduce=reduce, layout=lay)
+    assert segment_reduce.launches == before + 1
+    want = segment_reduce_ref(data, seg, num_segments=n, reduce=reduce,
+                              layout=lay)
+    _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reduce", ["sum", "min", "max"])
+def test_cuda_segment_reduce_gradients_match_cpu(cuda_device, reduce):
+    """The card's gradients (kernel tie counts and gather backward) equal
+    the CPU's (plain version) bit for bit, ties included."""
+    rng = np.random.default_rng(7)
+    n = 300
+    data = rng.integers(-2, 3, (20_000, 24)).astype(np.float32)
+    seg = rng.integers(0, n + 2, 20_000).astype(np.int32)
+    w = rng.standard_normal((n, 24)).astype(np.float32)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        x, s, ww = _on(dev, data, seg, w)
+        x.requires_grad_()
+        h = x[:n].detach().clone().requires_grad_()
+        out = segment_reduce(x, s, num_segments=n, reduce=reduce)
+        g = gather_rows(h, s.clamp(max=n - 1), segment_layout(
+            s.clamp(max=n - 1), n))
+        loss = torch.sum(out * ww) + torch.sum(g * x.detach())
+        grads.append([t.cpu() for t in torch.autograd.grad(loss, (x, h))])
+    for got, want in zip(grads[1], grads[0]):
+        _same_bits(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gcn-cora", "pna", "meshgraphnet",
+                                  "graphcast"])
+def test_cuda_train_driver_decreases_loss(cuda_device, arch):
+    before = segment_reduce.launches
+    losses = train.main(["--arch", arch, "--reduced", "--steps", "4",
+                         "--device", "cuda"])
+    assert losses[-1] < losses[0]
+    assert segment_reduce.launches > before
