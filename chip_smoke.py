@@ -48,8 +48,30 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    the CLI's meshgraphnet and graphcast set-up at the reference's default
    lr 1e-3, on the card and on the CPU from the card's weights, agreeing
    step by step whether or not the loss falls;
-8. the ``{"kernels": [...]}`` line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+8. embedding_bag vs plain, on the card, bit for bit: the bags DIEN's
+   main path gives it (one per history row of serve_p99's 512 rows,
+   serve_bulk's 262,144, the retrieval user and phase 10's 16,384
+   training rows, on the 2^23-row item table and the 10^4-row category
+   table, the mask as weights) and a generic case (unsorted bags, random
+   weights, -0.0/±inf entries, empty bags, the sentinel bag and bags past
+   it); then segment_reduce on the training backward's index arrays (by
+   item and category id, D = 18). Prints kernel, plain, library
+   (``F.embedding_bag``, ``index_add_``) and bound ms per case;
+9. DIEN serving at full width (``dien_forward`` at serve_p99 and
+   serve_bulk, ``dien_score_candidates`` at retrieval_cand: 1 user x
+   1,000,448 candidates in chunks), the embedding_bag count set to 0 just
+   before each and read just after: ms per call, rows or candidates per
+   second, peak memory; retrieval must equal the forward's margin for the
+   same candidates (``RETRIEVAL_TOL``), and the serve_p99 logits the CPU's
+   from host copies of the weights and batch (``LOGIT_TOL``);
+10. DIEN training at full width (``launch.train.dien_run`` at
+    ``launch.train.DIEN_TRAIN_BATCH`` rows, 5 steps), counters set to 0
+    just before and read just after: finite, falling loss, both
+    embedding_bag and segment_reduce launched; 3 steps at 256 rows on the
+    card and on the CPU from the same weights must agree; then the train
+    CLI (``--arch dien --steps 5``);
+11. the ``{"kernels": [...]}`` line, the card line, and last
+    ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or without the repository's ``src/`` beside this file, it
 exits non-zero and prints no result.
@@ -78,6 +100,13 @@ GNN_STEPS = {"gcn-cora": 4, "pna": 5, "meshgraphnet": 5, "graphcast": 5}
 # 1 + 1e-6 noise moved these 5-step losses by up to 4.8e-3 (pna/molecule)
 # and 1.9e-3 (the CLI's meshgraphnet at lr 1e-3).
 FIRST_LOSS_TOL, FIRST_GNORM_TOL, STEP_LOSS_TOL = 1e-5, 1e-4, 2e-2
+# DIEN (phases 9-10): the card's logits against the CPU's from the same
+# weights within 1e-5 of the largest |logit| (matmuls and the GRU's 100
+# steps round in another order); retrieval scores against the forward's
+# margins for the same candidates within 1e-4 of the largest margin (the
+# reference's own retrieval check, tests/test_models.py); training
+# replays at ``FIRST_LOSS_TOL``/``STEP_LOSS_TOL``.
+LOGIT_TOL, RETRIEVAL_TOL = 1e-5, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -598,6 +627,355 @@ def default_lr_witness(device):
     return out
 
 
+def bag_bytes(layout, d: int) -> int:
+    """Bytes an embedding_bag call must move: each in-range lookup's id,
+    weight and perm entry and its 4 D-byte row, the offsets, and the
+    [n_bags, D] output (the kernel reads no bag id: perm and offsets carry
+    them)."""
+    n = layout.num_segments
+    kept = int(layout.offsets[-1])
+    return kept * (12 + 4 * d) + 4 * (n + 1) + 4 * n * d
+
+
+def bag_phase(device):
+    """Phase 8: embedding_bag against its plain version on the card, bit
+    for bit, on the bags DIEN's serving and training give it (item and
+    category tables, the mask as weights) and on a generic case; then
+    segment_reduce on the training backward's index arrays. Timed per
+    case. Returns (embedding_bag row, segment_reduce cases)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.recsys_family import shape_batch
+    from repro_torch.data import DataCursor
+    from repro_torch.kernels import embedding_bag, segment_reduce
+    from repro_torch.kernels.embedding_bag import embedding_bag_ref
+    from repro_torch.kernels.segment_reduce import (
+        segment_layout,
+        segment_reduce_ref,
+    )
+    from repro_torch.launch.train import DIEN_TRAIN_BATCH
+
+    cfg = get_arch("dien")[0]
+    d = cfg.embed_dim
+    gen = torch.Generator(device=device)
+    gen.manual_seed(8)
+    tables = {"item": torch.randn((cfg.n_items, d), generator=gen,
+                                  device=device) * 0.02,
+              "cat": torch.randn((cfg.n_cats, d), generator=gen,
+                                 device=device) * 0.02}
+    err, timed = 0.0, {}
+
+    def run_case(tag, table, ids, bags, w, n_bags, lib_ids=None):
+        nonlocal err
+        lay = segment_layout(bags, n_bags)
+        kw = dict(n_bags=n_bags, layout=lay)
+        got = embedding_bag(table, ids, bags, w, **kw)
+        want = embedding_bag_ref(table, ids, bags, w, **kw)
+        err = max(err, same_bits(f"embedding_bag[{tag}]", got, want))
+        lib = None
+        if lib_ids is not None:   # F.embedding_bag on the same [B, S] bags
+            w2d = w.view(lib_ids.shape)
+
+            def library():
+                return F.embedding_bag(lib_ids, table, mode="sum",
+                                       per_sample_weights=w2d)
+            scale = max(float(want.abs().max()), 1e-30)
+            if float((library() - want).abs().max()) > 1e-5 * scale:
+                fail(f"embedding_bag[{tag}]: F.embedding_bag computes "
+                     "another function")
+            lib = cuda_ms(library, 20)
+        del got, want
+        ms = cuda_ms(lambda: embedding_bag(table, ids, bags, w, **kw), 20)
+        plain = cuda_ms(lambda: embedding_bag_ref(table, ids, bags, w, **kw),
+                        3)
+        bound = bag_bytes(lay, table.shape[1]) / HBM_BYTES_PER_S * 1e3
+        counts = lay.offsets[1:] - lay.offsets[:-1]
+        timed[tag] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                          bound_ms=bound, lookups=ids.shape[0], bags=n_bags,
+                          table_rows=table.shape[0],
+                          empty_bags=int((counts == 0).sum()),
+                          dropped_lookups=ids.shape[0] - int(lay.offsets[-1]))
+        lib_txt = f"{lib:.3f} ms" if lib is not None else "none"
+        print(f"[chip_smoke] embedding_bag[{tag}] bit-exact "
+              f"({timed[tag]['empty_bags']} empty bags, "
+              f"{timed[tag]['dropped_lookups']} dropped lookups): kernel "
+              f"{ms:.3f} ms, plain {plain:.3f} ms, F.embedding_bag {lib_txt}, "
+              f"bound {bound:.3f} ms", flush=True)
+
+    # the path's bags: one per history row and table, the mask as weights
+    path = (("serve_p99", None), ("serve_bulk", None),
+            ("retrieval_cand", None), ("train_batch", DIEN_TRAIN_BATCH))
+    train_ids = None
+    for shape_id, rows in path:
+        batch = shape_batch(cfg, shape_id, DataCursor(0, 0), device, rows)
+        b, s = batch["hist_items"].shape
+        bags = torch.arange(b, dtype=torch.int32,
+                            device=device).repeat_interleave(s)
+        w = batch["hist_mask"].reshape(-1).float()
+        for name, key in (("item", "hist_items"), ("cat", "hist_cats")):
+            ids = batch[key].reshape(-1)
+            run_case(f"{shape_id}/{name}", tables[name], ids, bags, w, b,
+                     lib_ids=batch[key].long())
+        if shape_id == "train_batch":
+            train_ids = batch
+        else:
+            del batch
+        torch.cuda.empty_cache()
+
+    # generic: unsorted bags, random weights, -0.0/±inf entries, empty
+    # bags, the sentinel bag and bags past it
+    n_bags, lookups = 1 << 16, 1 << 22
+    table = special_messages(1 << 20, d, seed=18, device=device) * 0.02
+    ids = torch.randint(0, 1 << 20, (lookups,), generator=gen, device=device,
+                        dtype=torch.int32)
+    bags = torch.randint(0, n_bags + 16, (lookups,), generator=gen,
+                         device=device, dtype=torch.int32)
+    bags[bags == 1] = 0                            # an empty bag
+    w = special_messages(lookups, 1, seed=19, device=device)[:, 0].contiguous()
+    run_case("generic", table, ids, bags, w, n_bags)
+    if timed["generic"]["empty_bags"] == 0 or \
+            timed["generic"]["dropped_lookups"] == 0:
+        fail("embedding_bag[generic]: no empty bag or no dropped lookup")
+    del table, ids, bags, w
+
+    # segment_reduce on DIEN training's backward: the gathered rows'
+    # gradients summed by item and category id (the history lookups and
+    # the bags' table gradient share the history's arrays), and the
+    # targets'
+    seg_timed = {}
+    for label, key, n in (("hist_items", "hist_items", cfg.n_items),
+                          ("hist_cats", "hist_cats", cfg.n_cats),
+                          ("target_item", "target_item", cfg.n_items),
+                          ("target_cat", "target_cat", cfg.n_cats)):
+        ids = train_ids[key].reshape(-1)
+        lay = segment_layout(ids, n)
+        data = special_messages(ids.shape[0], d, seed=d, device=device)
+        kw = dict(num_segments=n, layout=lay)
+        tag = f"segment_reduce[dien {label},D={d},sum]"
+        err_sr = same_bits(tag, segment_reduce(data, ids, **kw),
+                           segment_reduce_ref(data, ids, **kw))
+        ms = cuda_ms(lambda: segment_reduce(data, ids, **kw), 10)
+        plain = cuda_ms(lambda: segment_reduce_ref(data, ids, **kw), 3)
+        out = torch.zeros((n, d), device=device)
+        lib = cuda_ms(lambda: out.index_add_(0, ids, data), 10)
+        bound = segment_bytes(lay, d) / HBM_BYTES_PER_S * 1e3
+        seg_timed[f"dien_{label}/D={d}/sum"] = dict(
+            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
+            edges=ids.shape[0], segments=n, max_abs_err=err_sr)
+        print(f"[chip_smoke] {tag} bit-exact: kernel {ms:.3f} ms, plain "
+              f"{plain:.3f} ms, index_add_ {lib:.3f} ms, bound {bound:.3f} ms",
+              flush=True)
+        del data, out
+        torch.cuda.empty_cache()
+    head = timed["serve_bulk/item"]
+    row = dict(
+        name="embedding_bag", route="cuda",
+        source="src/repro_torch/kernels/csrc/embedding_bag.cu",
+        replaces="src/repro/kernels/embedding_bag/embedding_bag.py:46",
+        max_abs_err=err, ms=head["ms"], plain_ms=head["plain_ms"],
+        bound_ms=head["bound_ms"], bound_by="bytes",
+        library_ms=head["library_ms"], bit_exact=True, shapes=timed)
+    return row, seg_timed
+
+
+def timed_calls(fn, reps: int):
+    """(result of a cold call, its ms, mean ms of ``reps`` warm calls), each
+    call ended by a synchronize."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    cold = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return out, cold, (time.perf_counter() - t0) * 1e3 / reps
+
+
+def serve_phase(device):
+    """Phase 9: DIEN serving at full width on the card, the embedding_bag
+    count set to 0 just before each shape's calls and read just after:
+    ``dien_forward`` at serve_p99 and serve_bulk, ``dien_score_candidates``
+    at retrieval_cand. Then retrieval against the forward's margins for the
+    same candidates, and the card's serve_p99 logits against the CPU's from
+    host copies of the weights and batch. Returns (launches, per-shape
+    table)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.recsys_family import shape_batch
+    from repro_torch.data import DataCursor
+    from repro_torch.kernels import embedding_bag
+    from repro_torch.models import dien
+    from repro_torch.tree import tree_map
+
+    cfg = get_arch("dien")[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = dien.init_dien_params(gen, cfg)
+    runs, launches = {}, 0
+
+    def forward(batch):
+        return dien.dien_forward(cfg, params, batch)[0]
+
+    with torch.no_grad():
+        for shape_id, reps in (("serve_p99", 5), ("serve_bulk", 2),
+                               ("retrieval_cand", 2)):
+            batch = shape_batch(cfg, shape_id, DataCursor(0, 0), device)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            retrieval = shape_id == "retrieval_cand"
+            embedding_bag.launches = 0
+            out, cold, warm = timed_calls(
+                (lambda b=batch: dien.dien_score_candidates(cfg, params, b))
+                if retrieval else (lambda b=batch: forward(b)), reps)
+            launched = embedding_bag.launches
+            launches += launched
+            rows = batch["cand_items" if retrieval else "hist_items"].shape[0]
+            want = (rows,) if retrieval else (rows, 2)
+            if tuple(out.shape) != want or not bool(torch.isfinite(out).all()):
+                fail(f"DIEN {shape_id}: output {tuple(out.shape)}, finite "
+                     f"{bool(torch.isfinite(out).all())}")
+            if launched <= 0:
+                fail(f"DIEN {shape_id}: embedding_bag was never launched")
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            runs[shape_id] = dict(rows=rows, reps=reps, cold_ms=cold,
+                                  ms_per_call=warm,
+                                  rows_per_s=rows / warm * 1e3,
+                                  peak_gib=peak,
+                                  embedding_bag_launches=launched)
+            unit = "candidates" if retrieval else "rows"
+            print(f"[chip_smoke] phase 9: DIEN {shape_id} ({rows} {unit}): "
+                  f"cold {cold:.1f} ms, warm {warm:.1f} ms/call "
+                  f"({rows / warm * 1e3:.0f} {unit}/s); peak device memory "
+                  f"{peak:.2f} GiB; {launched} embedding_bag launches",
+                  flush=True)
+            if retrieval:
+                scores, user = out, batch
+            elif shape_id == "serve_p99":
+                p99_batch, p99_logits = batch, out
+            del batch, out
+            torch.cuda.empty_cache()
+
+        # retrieval == the forward's margin for the same candidate, at
+        # candidates across every chunk boundary
+        c = scores.shape[0]
+        chunk = dien.CANDIDATE_CHUNK
+        edges = {0, c - 1} | {i for k in range(1, -(-c // chunk))
+                              for i in (k * chunk - 1, k * chunk)}
+        spread = torch.linspace(0, c - 1, 512 - len(edges)).long().tolist()
+        picks = torch.tensor(sorted(edges) + spread, device=device)
+        same = {k: user[k].expand(picks.shape[0], -1)
+                for k in ("hist_items", "hist_cats", "hist_mask")}
+        same.update(target_item=user["cand_items"][picks],
+                    target_cat=user["cand_cats"][picks])
+        logits = forward(same)
+        margin = logits[:, 1] - logits[:, 0]
+        diff = float((scores[picks] - margin).abs().max())
+        scale = float(margin.abs().max())
+        if diff > RETRIEVAL_TOL * scale:
+            fail(f"retrieval vs forward margin: max diff {diff} at scale "
+                 f"{scale}")
+        runs["retrieval_cand"]["vs_forward_rel"] = diff / scale
+        print(f"[chip_smoke] phase 9: retrieval equals the forward's margin "
+              f"at {picks.shape[0]} candidates across {c // chunk} chunk "
+              f"boundaries (max diff {diff / scale:.2e} of the largest)",
+              flush=True)
+
+    # the card's serve_p99 logits against the CPU's from the same weights
+    t0 = time.perf_counter()
+    host_params = tree_map(lambda t: t.cpu(), params)
+    host_batch = {k: v.cpu() for k, v in p99_batch.items()}
+    del params
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        cpu_logits = dien.dien_forward(cfg, host_params, host_batch)[0]
+    diff = float((p99_logits.cpu() - cpu_logits).abs().max())
+    scale = float(cpu_logits.abs().max())
+    if diff > LOGIT_TOL * scale:
+        fail(f"serve_p99 logits: card and CPU differ by {diff} at scale "
+             f"{scale}")
+    runs["serve_p99"]["card_vs_cpu_rel"] = diff / scale
+    print(f"[chip_smoke] phase 9: serve_p99 logits on the CPU from the "
+          f"card's weights agree within {diff / scale:.2e} of the largest "
+          f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    return launches, runs
+
+
+def dien_train_phase(device):
+    """Phase 10: DIEN training at full width on the card (``dien_run`` at
+    ``DIEN_TRAIN_BATCH`` rows, 5 steps on the fixed batch, lr 1e-3), the
+    counts set to 0 just before and read just after; the loss must be
+    finite and fall, with both embedding_bag and segment_reduce launched.
+    Then 3 steps at a 256-row cut of the batch from the same initial
+    weights, on the card and on the CPU from host copies, must agree.
+    Returns (embedding_bag launches, segment_reduce launches, table)."""
+    import torch
+    from repro_torch.kernels import embedding_bag, segment_reduce
+    from repro_torch.launch.train import DIEN_TRAIN_BATCH, dien_run, train_step
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg, batch, params, opt, loss_fn = dien_run("train_batch", device)
+    small = {k: v[:256] for k, v in batch.items()}
+    host = to_cpu(params, small)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    embedding_bag.launches = 0
+    segment_reduce.launches = 0
+    losses, gnorms, step_s = [], [], []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        params, opt, loss, gnorm = train_step(loss_fn, params, opt, batch,
+                                              lr=1e-3)
+        losses.append(float(loss))
+        gnorms.append(float(gnorm))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+    bag_launches = embedding_bag.launches
+    seg_launches = segment_reduce.launches
+    if not all(map(math.isfinite, losses + gnorms)):
+        fail(f"DIEN train_batch: loss or gradient norm not finite: {losses} "
+             f"{gnorms}")
+    if not losses[-1] < losses[0]:
+        fail(f"DIEN train_batch: loss did not decrease: {losses}")
+    if bag_launches <= 0 or seg_launches <= 0:
+        fail(f"DIEN train_batch: launches embedding_bag {bag_launches}, "
+             f"segment_reduce {seg_launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    warm = step_s[1:]
+    run = dict(batch=DIEN_TRAIN_BATCH, steps=5, lr=1e-3, losses=losses,
+               gnorms=gnorms, first_step_ms=step_s[0] * 1e3,
+               ms_per_step=sum(warm) / len(warm) * 1e3, peak_gib=peak,
+               embedding_bag_launches=bag_launches,
+               segment_reduce_launches=seg_launches, setup_s=setup)
+    print(f"[chip_smoke] phase 10: DIEN train_batch cut to "
+          f"{DIEN_TRAIN_BATCH} rows, 5 steps, losses "
+          f"{[round(x, 5) for x in losses]}; first step "
+          f"{step_s[0] * 1e3:.1f} ms, then {run['ms_per_step']:.1f} ms/step; "
+          f"peak device memory {peak:.2f} GiB; {bag_launches} embedding_bag "
+          f"and {seg_launches} segment_reduce launches; set-up {setup:.1f}s",
+          flush=True)
+    del params, opt, batch
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    card = run_steps(loss_fn, tree_map(lambda t: t.to(device), host[0]),
+                     {k: v.to(device) for k, v in host[1].items()}, 3, 1e-3)
+    cpu = run_steps(loss_fn, *host, 3, 1e-3)
+    worst = card_agrees_with_cpu("DIEN 256-row replay", card, cpu)
+    run.update(replay_card_losses=card[0], replay_cpu_losses=cpu[0],
+               replay_card_gnorms=card[1], replay_cpu_gnorms=cpu[1],
+               replay_rel_diff=worst)
+    print(f"[chip_smoke] phase 10: 3 steps at 256 rows, card losses "
+          f"{card[0]}, gradient norms {card[1]}; CPU from the card's weights "
+          f"{cpu[0]}, {cpu[1]} (largest relative loss difference "
+          f"{worst:.2e}; {time.perf_counter() - t0:.1f}s)", flush=True)
+    return bag_launches, seg_launches, run
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -609,7 +987,13 @@ def main() -> None:
         fail(f"{src_dir}/repro_torch not found: run from a checkout of the "
              "repository")
     sys.path.insert(0, str(src_dir))
-    from repro_torch.kernels import _build, edge_relax, relax_multi
+    from repro_torch.kernels import (
+        _build,
+        edge_relax,
+        embedding_bag,
+        relax_multi,
+        segment_reduce,
+    )
     from repro_torch.launch import evolve, train
 
     device = torch.device("cuda", 0)
@@ -700,12 +1084,47 @@ def main() -> None:
           f"archs and the lr 1e-3 witness in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 8. records
+    # 8. embedding_bag vs plain (and segment_reduce on DIEN's backward)
+    t0 = time.perf_counter()
+    bag_row, dien_segments = bag_phase(device)
+    segment_row["shapes"].update(dien_segments)
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] phase 8 done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    # 9. DIEN serving, the count zeroed before each shape and read after
+    t0 = time.perf_counter()
+    bag_row["launches"], bag_row["dien_serving"] = serve_phase(device)
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] phase 9: {bag_row['launches']} embedding_bag "
+          f"launches over 3 serving shapes; done in "
+          f"{time.perf_counter() - t0:.1f}s (TF32 off)", flush=True)
+
+    # 10. DIEN training, counters zeroed before and read after; the CLI
+    t0 = time.perf_counter()
+    bag_n, seg_n, bag_row["dien_training"] = dien_train_phase(device)
+    torch.cuda.empty_cache()
+    embedding_bag.launches = 0
+    segment_reduce.launches = 0
+    losses = train.main(["--arch", "dien", "--steps", "5", "--device",
+                         "cuda"])
+    if not losses[-1] < losses[0]:
+        fail("train CLI dien: loss did not decrease")
+    if embedding_bag.launches <= 0 or segment_reduce.launches <= 0:
+        fail("train CLI dien: a kernel was never launched")
+    bag_row["launches"] += bag_n + embedding_bag.launches
+    segment_row["dien_launches"] = seg_n + segment_reduce.launches
+    segment_row["launches"] += segment_row["dien_launches"]
+    print(f"[chip_smoke] phase 10: train CLI dien (batch 8) losses "
+          f"{[round(x, 5) for x in losses]}; done in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 11. records
     edge_relax_row["launches"] = launches["edge_relax"]
     relax_multi_row["launches"] = launches["edge_relax_multi"]
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [edge_relax_row, relax_multi_row,
-                                  segment_row]}))
+                                  segment_row, bag_row]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,6 +39,7 @@ from repro_torch.launch.train import SHAPE_RUNS, shape_run, train_step
 WARM, TRACED, TOP = 2, 2, 8
 KINDS = (  # (kind, substrings of the kernel name), first match wins
     ("segment_reduce", ("segment_reduce_kernel",)),
+    ("embedding_bag", ("embedding_bag_kernel",)),
     ("sort", ("radix", "Radix", "sort", "Sort", "searchsorted")),
     ("gather/index", ("index", "Index", "gather", "Gather", "scatter",
                       "Scatter")),
@@ -63,31 +64,27 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def profile_run(arch: str, shape_id: str, lr: float, device) -> dict:
-    _, batch, params, opt, loss_fn = shape_run(arch, shape_id, device)
-
-    def step():
-        nonlocal params, opt
-        params, opt, loss, _ = train_step(loss_fn, params, opt, batch, lr=lr)
-        return float(loss)
-
-    for _ in range(WARM):
+def trace(step, warm: int, traced: int) -> dict:
+    """Run ``step()`` ``warm`` times, then trace ``traced`` more: wall and
+    device-busy ms per call, the device share, ms by kind and the top
+    kernels."""
+    for _ in range(warm):
         step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(TRACED):
+        for _ in range(traced):
             step()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / TRACED
+        wall_ms = (time.perf_counter() - t0) * 1e3 / traced
     kernels = {}
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:
             continue
         us = evt.self_device_time_total
         if us > 0:
-            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / TRACED
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us / 1e3 / traced
     busy = sum(kernels.values())
     by_kind = {}
     for name, ms in kernels.items():
@@ -97,6 +94,26 @@ def profile_run(arch: str, shape_id: str, lr: float, device) -> dict:
                 device_share=busy / wall_ms if wall_ms else 0.0,
                 by_kind_ms=dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
                 top_kernels_ms=[(name[:90], ms) for name, ms in top])
+
+
+def profile_run(arch: str, shape_id: str, lr: float, device) -> dict:
+    _, batch, params, opt, loss_fn = shape_run(arch, shape_id, device)
+
+    def step():
+        nonlocal params, opt
+        params, opt, loss, _ = train_step(loss_fn, params, opt, batch, lr=lr)
+        return float(loss)
+    return trace(step, WARM, TRACED)
+
+
+def report(tag: str, r: dict, prefix: str = "gnn_profile") -> None:
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in r["by_kind_ms"].items())
+    print(f"[{prefix}] {tag}: wall {r['wall_ms_per_step']:.2f} ms/call, "
+          f"device busy {r['device_ms_per_step']:.2f} ms/call "
+          f"({100 * r['device_share']:.1f}%); by kind (ms/call): {kinds}",
+          flush=True)
+    for name, ms in r["top_kernels_ms"]:
+        print(f"[{prefix}]   {ms:9.3f} ms  {name}")
 
 
 def main() -> None:
@@ -111,13 +128,7 @@ def main() -> None:
         r = profile_run(arch, shape_id, lr, device)
         tag = f"{arch}/{shape_id}"
         result["runs"][tag] = r
-        kinds = ", ".join(f"{k} {v:.2f}" for k, v in r["by_kind_ms"].items())
-        print(f"[gnn_profile] {tag}: wall {r['wall_ms_per_step']:.2f} ms/step, "
-              f"device busy {r['device_ms_per_step']:.2f} ms/step "
-              f"({100 * r['device_share']:.1f}%); by kind (ms/step): {kinds}",
-              flush=True)
-        for name, ms in r["top_kernels_ms"]:
-            print(f"[gnn_profile]   {ms:9.3f} ms  {name}")
+        report(tag, r)
         torch.cuda.empty_cache()
     out = pathlib.Path("chiprun_out")
     out.mkdir(exist_ok=True)

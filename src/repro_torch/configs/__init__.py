@@ -1,8 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-The GNN family (gcn-cora, pna, meshgraphnet, graphcast) is ported; the LM
-and recsys architectures raise ``NotImplementedError`` naming the ROADMAP
-item they wait for.
+The GNN family (gcn-cora, pna, meshgraphnet, graphcast) and the recsys
+family (dien) are ported; the LM architectures raise
+``NotImplementedError`` naming the ROADMAP item they wait for.
 """
 
 from __future__ import annotations
@@ -27,11 +27,7 @@ _MODULES = {
     "graphcast": "graphcast",
     "gcn-cora": "gcn_cora",
     "meshgraphnet": "meshgraphnet",
-}
-
-_WAITING = {
-    "dien": "the recsys slice (ROADMAP §A12: models/embedding.py, the "
-            "embedding_bag kernel B4, then models/dien.py)",
+    "dien": "dien",
 }
 
 
@@ -40,15 +36,18 @@ def get_arch(arch_id: str):
     if arch_id not in ARCH_IDS:
         raise KeyError(f"unknown architecture {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in _MODULES:
-        waits = _WAITING.get(arch_id, "the LM slice (ROADMAP §A12, LM family)")
         raise NotImplementedError(f"{arch_id} is not ported yet: it waits "
-                                  f"for {waits}")
+                                  "for the LM slice (ROADMAP §A12, LM family)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG, mod.FAMILY
 
 
 def reduced_config(arch_id: str):
-    """(reduced config, family): 2 layers, width 16 (8 graphcast vars)."""
+    """(reduced config, family): GNNs at 2 layers, width 16 (8 graphcast
+    vars); DIEN at 1,000 items, 50 categories, sequence 10."""
     cfg, family = get_arch(arch_id)
+    if family == "recsys":
+        from repro_torch.configs.recsys_family import reduced_recsys_config
+        return reduced_recsys_config(cfg), family
     from repro_torch.configs.gnn_family import reduced_gnn_config
     return reduced_gnn_config(cfg), family

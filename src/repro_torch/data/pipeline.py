@@ -1,4 +1,5 @@
-"""Synthetic batch feeders for the GNN family (seed+step deterministic).
+"""Synthetic batch feeders for the GNN and recsys families (seed+step
+deterministic).
 
 Counterpart of ``repro.data.pipeline``: the same keys, shapes, dtypes and
 distributions, built directly on the given device from a
@@ -81,4 +82,19 @@ def gnn_molecule_batch(cursor: DataCursor, n_graphs: int, nodes_per: int,
         "graph_id": torch.arange(n, dtype=torch.int32,
                                  device=gen.device) // nodes_per,
         "graph_targets": _randn(gen, (n_graphs, d_out)),
+    }
+
+
+def dien_batch(cursor: DataCursor, batch: int, seq: int, n_items: int,
+               n_cats: int, *, device: str | torch.device = "cuda"):
+    """Random behavior histories (all steps valid), targets and 0/1 labels."""
+    gen = cursor.generator(device)
+    return {
+        "hist_items": _randint(gen, n_items, (batch, seq)),
+        "hist_cats": _randint(gen, n_cats, (batch, seq)),
+        "hist_mask": torch.ones((batch, seq), dtype=torch.bool,
+                                device=gen.device),
+        "target_item": _randint(gen, n_items, (batch,)),
+        "target_cat": _randint(gen, n_cats, (batch,)),
+        "label": _randint(gen, 2, (batch,)),
     }

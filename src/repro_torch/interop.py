@@ -4,7 +4,7 @@ For the query engine data takes the place of weights: an evolving
 sequence, an anchor query state or an edge block built by ``repro`` is
 handed over as numpy arrays (``np.asarray`` of the JAX arrays) and rebuilt
 here as the port's objects, so both packages compute on the same inputs.
-GNN parameters cross the same way (``gnn_params_from_arrays``). Nothing
+Model parameters (GNN, DIEN) cross the same way (``params_from_arrays``). Nothing
 from ``repro`` is imported.
 """
 
@@ -53,12 +53,12 @@ def block_from_arrays(src, dst, w,
                      torch.from_numpy(np.array(w, dtype=np.float32)).to(device))
 
 
-def gnn_params_from_arrays(tree, device: str | torch.device = "cuda"):
-    """The port's GNN parameters from the JAX package's: a nested dict/list
+def params_from_arrays(tree, device: str | torch.device = "cuda"):
+    """The port's model parameters from the JAX package's: a nested dict/list
     of arrays (``jax.tree.map(np.asarray, params)``) becomes the same tree
     of float32 tensors on ``device``."""
     if isinstance(tree, dict):
-        return {k: gnn_params_from_arrays(v, device) for k, v in tree.items()}
+        return {k: params_from_arrays(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [gnn_params_from_arrays(v, device) for v in tree]
+        return [params_from_arrays(v, device) for v in tree]
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)

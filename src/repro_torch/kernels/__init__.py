@@ -8,6 +8,7 @@ sources live in ``csrc/`` and are built by ``_build.py`` at first use.
 
 from repro_torch.kernels.edge_relax.ops import edge_relax
 from repro_torch.kernels.edge_relax_multi.ops import relax_multi
+from repro_torch.kernels.embedding_bag.ops import embedding_bag
 from repro_torch.kernels.segment_reduce.ops import segment_reduce
 
-__all__ = ["edge_relax", "relax_multi", "segment_reduce"]
+__all__ = ["edge_relax", "embedding_bag", "relax_multi", "segment_reduce"]

@@ -26,7 +26,7 @@ import subprocess
 import tempfile
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("relax.cu", "segment_reduce.cu")
+SOURCES = ("relax.cu", "segment_reduce.cu", "embedding_bag.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
@@ -41,6 +41,7 @@ SIGNATURES = {
                         _P, _P, _P, _P, _P, _P, _P, _P),
     "edge_relax_run": (_I, _I, _P, _P, _P, _P, _LL, _P, _P, _P),
     "segment_reduce_run": (_I, _I, _I, _P, _P, _P, _P, _P),
+    "embedding_bag_run": (_I, _I, _P, _P, _P, _P, _P, _P, _P),
 }
 
 _lib = None

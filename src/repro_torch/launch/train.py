@@ -1,20 +1,26 @@
-"""End-to-end training driver of the port (``--arch <id>``): the GNN family.
+"""End-to-end training driver of the port (``--arch <id>``): the GNN and
+recsys families.
 
 Counterpart of ``repro.launch.train`` with the same flags, plus
 ``--device`` (default ``cuda``; the CPU only when asked). It builds a
 (possibly reduced) config, synthesizes data deterministically on the
 device, and runs ``train_step`` — forward, backward, ``adamw_update`` —
-with checkpoint/restart. Every aggregation runs in the ``segment_reduce``
-kernel on CUDA. The LM and recsys families are not ported yet
-(``configs.get_arch`` says which ROADMAP item each waits for).
+with checkpoint/restart. On CUDA every GNN aggregation and every row
+gather's backward runs in the ``segment_reduce`` kernel, and DIEN's pooled
+history in the ``embedding_bag`` kernel. The LM family is not ported yet
+(``configs.get_arch`` says which ROADMAP item it waits for).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch pna --steps 5 \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch dien --reduced \\
+        --device cpu
 
-``configs.gnn_family.shape_batch`` gives the batches of the named shapes
-(ogb_products, molecule, full_graph_sm) for ``train_step``, and
-``shape_run`` sets up a full-width run on one of them; this driver, like
-the reference's, trains on one small random graph.
+``configs.gnn_family.shape_batch`` gives the batches of the named GNN
+shapes (ogb_products, molecule, full_graph_sm) for ``train_step``, and
+``shape_run`` sets up a full-width run on one of them; ``dien_run`` does
+the same for DIEN's shapes (``configs.recsys_family``). This driver, like
+the reference's, trains a GNN on one small random graph and DIEN on one
+``--batch``-row batch.
 """
 
 from __future__ import annotations
@@ -25,9 +31,10 @@ import time
 
 import torch
 
-from repro_torch.configs import get_arch, reduced_config
+from repro_torch.configs import get_arch, recsys_family, reduced_config
 from repro_torch.configs.gnn_family import _arch_shape_cfg, shape_batch
-from repro_torch.data import DataCursor, gnn_full_batch
+from repro_torch.data import DataCursor, dien_batch, gnn_full_batch
+from repro_torch.models.dien import dien_loss, init_dien_params
 from repro_torch.models.gnn import gnn_loss, init_gnn_params
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.runtime.checkpoint import CheckpointManager
@@ -40,14 +47,30 @@ from repro_torch.tree import tree_leaves, tree_unflatten
 SHAPE_RUNS = (("gcn-cora", "ogb_products", 1e-3), ("pna", "molecule", 1e-3),
               ("meshgraphnet", "full_graph_sm", 1e-4),
               ("graphcast", "full_graph_sm", 1e-4))
+# DIEN's full-width training rows on one card: train_batch's 65,536-row
+# global batch (sharded over a pod by the reference) cut to a quarter,
+# since the GRU and AUGRU keep ~100 steps of activations per row for the
+# backward.
+DIEN_TRAIN_BATCH = 16_384
 
 
 def build(arch: str, reduced: bool, batch: int, seq: int,
           device: str | torch.device = "cuda"):
     """(cfg, family, params_init(gen), loss_fn(params, batch),
-    data_fn(cursor)) for a GNN architecture; ``batch`` and ``seq`` size the
-    LM and recsys families, which are not ported yet."""
+    data_fn(cursor)) for a GNN or recsys architecture; ``batch`` sizes the
+    recsys batch, ``seq`` waits for the LM family."""
     cfg, family = reduced_config(arch) if reduced else get_arch(arch)
+    if family == "recsys":
+        def dien_init(gen):
+            return init_dien_params(gen, cfg)
+
+        def dien_loss_fn(p, b):
+            return dien_loss(cfg, p, b)
+
+        def dien_data(cursor):
+            return dien_batch(cursor, batch, cfg.seq_len, cfg.n_items,
+                              cfg.n_cats, device=device)
+        return cfg, family, dien_init, dien_loss_fn, dien_data
     n, e = 64, 256
     cfg = dataclasses.replace(
         cfg, d_in=16, d_out=4,
@@ -110,6 +133,26 @@ def shape_run(arch: str, shape_id: str, device: str | torch.device = "cuda",
     def loss_fn(p, b):
         return gnn_loss(cfg, p, b)
     return cfg, batch, params, adamw_init(params), loss_fn
+
+
+def dien_run(shape_id: str, device: str | torch.device = "cuda",
+             seed: int = 0):
+    """(cfg, batch, params, opt, loss_fn) of DIEN at its full width on
+    ``shape_id`` (``recsys_family.RECSYS_SHAPES``; train_batch at
+    ``DIEN_TRAIN_BATCH`` rows): the batch from ``DataCursor(seed, 0)``, the
+    parameters from a generator on ``device`` seeded with ``seed``.
+    ``loss_fn`` needs a training shape's labels."""
+    cfg = get_arch("dien")[0]
+    rows = DIEN_TRAIN_BATCH if shape_id == "train_batch" else None
+    data = recsys_family.shape_batch(cfg, shape_id, DataCursor(seed, 0),
+                                     device, rows)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = init_dien_params(gen, cfg)
+
+    def loss_fn(p, b):
+        return dien_loss(cfg, p, b)
+    return cfg, data, params, adamw_init(params), loss_fn
 
 
 def train_step(loss_fn, params, opt, batch, *, lr: float,

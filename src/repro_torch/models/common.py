@@ -1,11 +1,11 @@
-"""Shared NN building blocks of the GNN family: initializers, MLPs, norms,
-losses.
+"""Shared NN building blocks of the GNN and recsys families: initializers,
+MLPs, norms, losses.
 
 Counterpart of ``repro.models.common``. Parameters are plain dicts of leaf
 tensors; initializers draw from an explicit ``torch.Generator`` on the
 device the parameters live on, so their numbers differ from
 ``jax.random``'s for the same seed (tests carry the JAX package's weights
-across with ``interop.gnn_params_from_arrays``). Everything is float32.
+across with ``interop.params_from_arrays``). Everything is float32.
 
 Left out: the latent-sharding hooks ``_lat`` and ``latent_constrainer``,
 which do nothing on one card; the LM helpers ``rms_norm``, ``swiglu``,

@@ -67,3 +67,26 @@ def messages(n, e, d, seed, *, oob=False):
     seg = rng.integers(0, n + 3 if oob else n, e).astype(np.int32)
     seg[seg == 1] = 0
     return data, seg
+
+
+def bag_lookups(v, d, n, b, seed, *, oob=False, zeros=False, infs=False):
+    """(table [v, d] float32, ids [n] int32, bags [n] int32, weights [n]
+    float32) for ``b`` bags, in no order: bag 1 empty (when b > 2); with
+    ``oob`` some bags at the sentinel ``b`` and past it; with ``zeros``
+    -0.0/+0.0 table entries and -0.0 weights; with ``infs`` ±inf table
+    entries."""
+    rng = np.random.default_rng(seed + 211)
+    table = rng.standard_normal((v, d)).astype(np.float32)
+    w = rng.standard_normal(n).astype(np.float32)
+    if zeros:
+        table[rng.random((v, d)) < 0.1] = np.float32(-0.0)
+        table[rng.random((v, d)) < 0.1] = np.float32(0.0)
+        w[rng.random(n) < 0.05] = np.float32(-0.0)
+    if infs:
+        table[rng.random((v, d)) < 0.01] = np.float32(np.inf)
+        table[rng.random((v, d)) < 0.01] = np.float32(-np.inf)
+    ids = rng.integers(0, v, n).astype(np.int32)
+    bags = rng.integers(0, b + 3 if oob else b, n).astype(np.int32)
+    if b > 2:
+        bags[bags == 1] = 0
+    return table, ids, bags, w

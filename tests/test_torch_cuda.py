@@ -1,7 +1,7 @@
 """The port's CUDA kernels held against their plain PyTorch versions on a
-card, bit for bit: the relax kernels (min/max reductions are order-free)
-and segment_reduce (sums too: kernel and plain version both reduce each
-segment in edge order). No tolerance.
+card, bit for bit: the relax kernels (min/max reductions are order-free),
+segment_reduce and embedding_bag (sums too: kernel and plain version both
+add each segment or bag in edge or lookup order). No tolerance.
 
 Imports neither jax nor repro, so it runs on a GPU machine without them:
 
@@ -21,9 +21,15 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from _torch_inputs import edges, messages, state, values  # noqa: E402
+from _torch_inputs import bag_lookups, edges, messages, state, values  # noqa: E402
 from repro_torch.graph.semiring import ALL_SEMIRINGS  # noqa: E402
-from repro_torch.kernels import edge_relax, relax_multi, segment_reduce  # noqa: E402
+from repro_torch.kernels import (  # noqa: E402
+    edge_relax,
+    embedding_bag,
+    relax_multi,
+    segment_reduce,
+)
+from repro_torch.kernels.embedding_bag import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.segment_reduce import (  # noqa: E402
     gather_rows,
     segment_layout,
@@ -138,3 +144,54 @@ def test_cuda_train_driver_decreases_loss(cuda_device, arch):
                          "--device", "cuda"])
     assert losses[-1] < losses[0]
     assert segment_reduce.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 7, 18, 36])
+@pytest.mark.parametrize("flags", ["plain", "specials"])
+def test_cuda_embedding_bag_matches_plain(cuda_device, d, flags):
+    """Unsorted bags, random weights; with "specials" also -0.0/±inf
+    entries, empty bags, the sentinel bag and bags past it."""
+    special = flags == "specials"
+    n_bags = 700
+    table, ids, bags, w = _on(cuda_device, *bag_lookups(
+        5000, d, 40_000, n_bags, seed=d, oob=special, zeros=special,
+        infs=special))
+    lay = segment_layout(bags, n_bags)
+    before = embedding_bag.launches
+    got = embedding_bag(table, ids, bags, w, n_bags=n_bags, layout=lay)
+    assert embedding_bag.launches == before + 1
+    _same_bits(got, embedding_bag_ref(table, ids, bags, w, n_bags=n_bags,
+                                      layout=lay))
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_gradients_match_cpu(cuda_device):
+    """The card's table gradient (segment_reduce's sum by id) and weights
+    gradient (column-ordered dot products) equal the CPU's bit for bit."""
+    n_bags = 300
+    arrays = bag_lookups(2000, 18, 30_000, n_bags, seed=11, oob=True)
+    g = np.random.default_rng(2).standard_normal((n_bags, 18)).astype(
+        np.float32)
+    grads = []
+    for dev in ("cpu", cuda_device):
+        table, ids, bags, w, gg = _on(dev, *arrays, g)
+        table.requires_grad_()
+        w.requires_grad_()
+        out = embedding_bag(table, ids, bags, w, n_bags=n_bags)
+        grads.append([t.cpu() for t in torch.autograd.grad(
+            torch.sum(out * gg), (table, w))])
+    for got, want in zip(grads[1], grads[0]):
+        _same_bits(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_dien_train_driver_decreases_loss(cuda_device):
+    """Reduced DIEN trains on the card through both kernels: the pooled
+    history in embedding_bag, the gradient sums in segment_reduce."""
+    before = embedding_bag.launches, segment_reduce.launches
+    losses = train.main(["--arch", "dien", "--reduced", "--steps", "4",
+                         "--device", "cuda"])
+    assert losses[-1] < losses[0]
+    assert embedding_bag.launches > before[0]
+    assert segment_reduce.launches > before[1]

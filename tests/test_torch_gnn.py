@@ -1,7 +1,7 @@
 """The port's GNN training path held against the JAX package on the CPU.
 
 Same inputs (the JAX package's batch and weights, carried across as numpy
-arrays with ``interop.gnn_params_from_arrays``) go through both packages'
+arrays with ``interop.params_from_arrays``) go through both packages'
 forward, loss, gradients and three AdamW steps, for all four architectures
 at reduced size. Aggregations are bit-exact (``test_torch_segment_reduce``),
 but matrix products are not: XLA's CPU dots and torch's CPU matmul sum the
@@ -46,7 +46,7 @@ from repro_torch.configs.gnn_family import (  # noqa: E402
     shape_batch,
 )
 from repro_torch.data import DataCursor, gnn_full_batch, gnn_molecule_batch  # noqa: E402
-from repro_torch.interop import gnn_params_from_arrays  # noqa: E402
+from repro_torch.interop import params_from_arrays  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
 from repro_torch.models.gnn import gnn_forward, gnn_loss, init_gnn_params  # noqa: E402
@@ -69,7 +69,7 @@ def _carried(arch):
     tcfg, _, _, tloss, _ = ttrain.build(arch, True, 8, 128, "cpu")
     jp = jinit(jax.random.PRNGKey(0))
     jb = jdata(JCursor(0, 0))
-    tp = gnn_params_from_arrays(jax.tree.map(np.asarray, jp), "cpu")
+    tp = params_from_arrays(jax.tree.map(np.asarray, jp), "cpu")
     return jcfg, tcfg, jp, tp, jb, _t(jb), jloss, tloss
 
 
@@ -245,14 +245,14 @@ def test_adamw_matches_reference_on_a_tree():
     shapes = {"b": [(3,), (2, 2)], "a": {"w": (4, 5)}}
     params = jax.tree.map(lambda s: rng.standard_normal(s).astype(np.float32),
                           shapes, is_leaf=lambda x: isinstance(x, tuple))
-    tparams = gnn_params_from_arrays(params, "cpu")
+    tparams = params_from_arrays(params, "cpu")
     jp, tp = jax.tree.map(jnp.asarray, params), tparams
     jo, to = j_adamw_init(jp), adamw_init(tp)
     for step in range(4):
         grads = jax.tree.map(lambda p, s=step: p * (3.0 - s), params)
         jp, jo, jn = j_adamw_update(jax.tree.map(jnp.asarray, grads), jo, jp,
                                     lr=1e-2, weight_decay=0.1, max_norm=2.0)
-        tp, to, tn = adamw_update(gnn_params_from_arrays(grads, "cpu"), to,
+        tp, to, tn = adamw_update(params_from_arrays(grads, "cpu"), to,
                                   tp, lr=1e-2, weight_decay=0.1, max_norm=2.0)
         np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
     for got, want in zip(tree_leaves(tp), jax.tree.leaves(jp)):
@@ -283,7 +283,7 @@ def test_common_blocks_match_reference():
     jparams = jcommon.mlp_params(jax.random.PRNGKey(0), (6, 8, 3), norm=True)
     assert jax.tree.map(np.shape, jparams) == tree_map(
         lambda t: tuple(t.shape), p)
-    carried = gnn_params_from_arrays(jax.tree.map(np.asarray, jparams), "cpu")
+    carried = params_from_arrays(jax.tree.map(np.asarray, jparams), "cpu")
     np.testing.assert_allclose(
         tcommon.mlp_apply(carried, torch.from_numpy(x)).numpy(),
         np.asarray(jcommon.mlp_apply(jparams, x)), rtol=1e-5, atol=1e-5)
@@ -312,10 +312,12 @@ def test_configs_and_init_shapes_match_reference(arch):
 
 
 def test_registry_names_what_waits():
-    with pytest.raises(NotImplementedError, match="LM"):
-        tconfigs.get_arch("llama3.2-3b")
-    with pytest.raises(NotImplementedError, match="embedding_bag"):
-        tconfigs.reduced_config("dien")
+    """dien resolves (full and reduced); the LM archs still wait."""
+    assert tconfigs.get_arch("dien")[1] == "recsys"
+    assert tconfigs.reduced_config("dien")[0].seq_len == 10
+    for arch in ("llama3.2-3b", "qwen3-moe-30b-a3b"):
+        with pytest.raises(NotImplementedError, match="LM"):
+            tconfigs.reduced_config(arch)
     with pytest.raises(KeyError):
         tconfigs.get_arch("resnet")
 

@@ -4,6 +4,7 @@ and the port's import hygiene (no jax, no repro)."""
 
 import os
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -297,6 +298,20 @@ print("ok", len({modules!r}))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok ")
     assert int(proc.stdout.split()[1]) >= 20
+
+
+def test_kernel_sources_export_every_bound_signature():
+    """Every source under csrc/ is built, and each ctypes signature in
+    ``_build.SIGNATURES`` names an ``extern "C"`` entry point of those
+    sources with as many parameters (no compiler here checks it)."""
+    from repro_torch.kernels import _build
+    assert sorted(_build.SOURCES) == sorted(
+        p.name for p in _build.CSRC.glob("*.cu"))
+    text = "\n".join((_build.CSRC / s).read_text() for s in _build.SOURCES)
+    for name, argtypes in _build.SIGNATURES.items():
+        found = re.search(rf"\bint {name}\(([^)]*)\)", text)
+        assert found, name
+        assert len(found.group(1).split(",")) == len(argtypes), name
 
 
 def test_chip_smoke_refuses_without_gpu_or_repo(tmp_path):
