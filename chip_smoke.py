@@ -29,10 +29,15 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    src (75) and by graph id (1), meshgraphnet/full_graph_sm by dst, src
    and clamped dst (128), graphcast/full_graph_sm's g2m, mesh and m2g
    edge sets by dst and by src (512); and sum, min and max on a 2^24-edge
-   random message stream. -0.0 and ±inf entries everywhere; empty
-   segments and sentinel ids where the arrays have them. Prints kernel,
-   plain, library (``index_add_``, ``scatter_reduce_``) and bound ms per
-   case;
+   random message stream and on a 2^24-edge Zipf stream (the evolve
+   path's R-MAT degree skew, D = 16). -0.0 and ±inf entries everywhere;
+   empty segments and sentinel ids where the arrays have them. Prints per
+   case the kernel's ms (back-to-back calls, events; the host's time per
+   call where that is longer) as a multiple of its bytes bound, plain ms,
+   the library's ms (``index_add_``, ``scatter_reduce_``) with its
+   output's fill inside the timing and into a filled output, and for
+   D <= 8 the sector floor (each gathered row counted as a 32-byte
+   sector);
 6. GNN training on the card (``launch.train.SHAPE_RUNS`` through
    ``shape_run`` and ``train_step``), the counters set to 0 just before and
    read just after: gcn-cora at its full width on ogb_products (2,449,408
@@ -55,8 +60,9 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    table, the mask as weights) and a generic case (unsorted bags, random
    weights, -0.0/±inf entries, empty bags, the sentinel bag and bags past
    it); then segment_reduce on the training backward's index arrays (by
-   item and category id, D = 18). Prints kernel, plain, library
-   (``F.embedding_bag``, ``index_add_``) and bound ms per case;
+   item and category id, D = 18; timed as in phase 5). Prints kernel,
+   plain, library (``F.embedding_bag``, ``index_add_``) and bound ms per
+   case;
 9. DIEN serving at full width (``dien_forward`` at serve_p99 and
    serve_bulk, ``dien_score_candidates`` at retrieval_cand: 1 user x
    1,000,448 candidates in chunks), the embedding_bag count set to 0 just
@@ -90,6 +96,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 NODES, EDGES, SNAPSHOTS, CHANGES = 1 << 22, 1 << 24, 8, 75_000
 OTHER_NODES, OTHER_EDGES = 1 << 18, 1 << 20
 STREAM_SEGMENTS, STREAM_EDGES = 1 << 20, 1 << 24
+# Phase 5's skewed stream: STREAM_EDGES ids into STREAM_SEGMENTS segments
+# drawn from a Zipf law over ranks (weight r^-0.65). The exponent gives the
+# degree skew of the evolve path's R-MAT graphs (a, b, c = 0.57, 0.19,
+# 0.19): at 2^18 vertices and 2^22 edges the port's ``rmat_edges`` puts
+# 1.8% of the edges on its 10 largest in-degrees, ranks at 0.65 put 1.9%.
+ZIPF_EXPONENT = 0.65
 # training steps of each phase-6 run (``launch.train.SHAPE_RUNS``)
 GNN_STEPS = {"gcn-cora": 4, "pna": 5, "meshgraphnet": 5, "graphcast": 5}
 # Card vs CPU from the same weights and batch (phases 6 and 7): the first
@@ -366,19 +378,97 @@ def segment_bytes(layout, d: int) -> int:
     return 4 * kept * d + 4 * kept + 4 * (n + 1) + 4 * n * d
 
 
-def segment_phase(device):
+def sector_floor_bytes(layout, d: int) -> int:
+    """``segment_bytes`` with each gathered row of fewer than 32 bytes
+    counted as the 32-byte sector a random read of it costs (D <= 8)."""
+    kept = int(layout.offsets[-1])
+    return segment_bytes(layout, d) + kept * (32 - 4 * d)
+
+
+def zipf_ids(e: int, n: int, seed: int, device):
+    """``e`` int32 ids into ``n`` segments: ranks drawn with weight
+    ``r^-ZIPF_EXPONENT``, mapped to ids by a seeded permutation."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    weight = torch.arange(1, n + 1, dtype=torch.float64,
+                          device=device).pow(-ZIPF_EXPONENT)
+    cdf = torch.cumsum(weight, 0)
+    cdf /= cdf[-1].clone()
+    u = torch.rand(e, generator=gen, dtype=torch.float64, device=device)
+    rank = torch.searchsorted(cdf, u).clamp_(max=n - 1)
+    ids = torch.randperm(n, generator=gen, device=device)[rank]
+    return ids.to(torch.int32)
+
+
+def library_ms(reduce: str, lay, data):
+    """Times of the one PyTorch call computing the same reduction
+    (``index_add_`` for sum, ``scatter_reduce_`` for min/max) on the
+    layout's clamped ids (dropped ids into an extra row): with its output's
+    fill (``torch.full``) inside the timing, the same function as the
+    kernel; and into an output filled once outside it."""
+    import torch
+    n, d = lay.num_segments, data.shape[1]
+    fill = {"sum": 0.0, "min": math.inf, "max": -math.inf}[reduce]
+    if reduce == "sum":
+        def call(out):
+            return out.index_add_(0, lay.seg, data)
+    else:
+        index = lay.seg.long()[:, None].expand(-1, d)
+        how = "amin" if reduce == "min" else "amax"
+
+        def call(out):
+            return out.scatter_reduce_(0, index, data, how)
+    out = torch.full((n + 1, d), fill, device=data.device)
+    prefilled = cuda_ms(lambda: call(out), 10)
+    del out
+    return cuda_ms(lambda: call(torch.full((n + 1, d), fill,
+                                           device=data.device)), 10), prefilled
+
+
+def segment_case(tag, data, ids, lay, reduce, plain_reps=3):
+    """One segment_reduce case: bit for bit against the plain version,
+    then the kernel's, plain and library times, the bytes bound (and for
+    D <= 8 the sector floor). The kernel's calls after the first reuse the
+    tiles it kept in ``lay``. Returns (timed dict, max abs err)."""
+    from repro_torch.kernels import segment_reduce
+    from repro_torch.kernels.segment_reduce import segment_reduce_ref
+    n, d = lay.num_segments, data.shape[1]
+    kw = dict(num_segments=n, reduce=reduce, layout=lay)
+    err = same_bits(tag, segment_reduce(data, ids, **kw),
+                    segment_reduce_ref(data, ids, **kw))
+    ms = cuda_ms(lambda: segment_reduce(data, ids, **kw), 10)
+    plain = cuda_ms(lambda: segment_reduce_ref(data, ids, **kw), plain_reps)
+    lib, lib_prefilled = library_ms(reduce, lay, data)
+    bound = segment_bytes(lay, d) / HBM_BYTES_PER_S * 1e3
+    timed = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                 library_prefilled_ms=lib_prefilled, bound_ms=bound,
+                 edges=ids.shape[0], segments=n)
+    floor = ""
+    if d <= 8:
+        timed["sector_floor_ms"] = (sector_floor_bytes(lay, d)
+                                    / HBM_BYTES_PER_S * 1e3)
+        floor = f", sector floor {timed['sector_floor_ms']:.3f} ms"
+    timed["empty_segments"] = int((lay.offsets.diff() == 0).sum())
+    timed["dropped_ids"] = ids.shape[0] - int(lay.offsets[-1])
+    print(f"[chip_smoke] {tag} bit-exact ({timed['empty_segments']} empty "
+          f"segments, {timed['dropped_ids']} dropped ids): kernel {ms:.3f} "
+          f"ms ({ms / bound:.2f}x its bound), plain {plain:.3f} ms, library "
+          f"{lib:.3f} ms with its fill ({lib_prefilled:.3f} ms into a filled "
+          f"output), bound {bound:.3f} ms{floor}", flush=True)
+    return timed, err
+
+
+def segment_phase(device, case=segment_case):
     """Phase 5: segment_reduce against its plain version on the card, bit
     for bit, at every (index array, width, reduce) the GNN runs of phase 6
-    give it, and on a 2^24-edge stream; timed per case."""
+    give it, and on the 2^24-edge streams; each case run by ``case``
+    (``segment_case``'s arguments and result)."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.configs.gnn_family import _arch_shape_cfg, shape_batch
     from repro_torch.data import DataCursor
-    from repro_torch.kernels import segment_reduce
-    from repro_torch.kernels.segment_reduce import (
-        segment_layout,
-        segment_reduce_ref,
-    )
+    from repro_torch.kernels.segment_reduce import segment_layout
 
     def batch_of(arch, shape_id):
         cfg = _arch_shape_cfg(get_arch(arch)[0], shape_id)
@@ -413,6 +503,8 @@ def segment_phase(device):
         "mesh_src": (gc["mesh_src"], n_mesh),
         "m2g_dst": (gc["m2g_dst"], n_grid), "m2g_src": (gc["m2g_src"], n_mesh),
         "stream": (stream, STREAM_SEGMENTS),
+        "zipf": (zipf_ids(STREAM_EDGES, STREAM_SEGMENTS, 6, device),
+                 STREAM_SEGMENTS),
     }
     # the sets that must hold an empty segment (the shapes' padded nodes,
     # the stream's emptied segment 1)
@@ -428,56 +520,36 @@ def segment_phase(device):
              ("g2m_dst", 512, ("sum",)), ("g2m_src", 512, ("sum",)),
              ("mesh_dst", 512, ("sum",)), ("mesh_src", 512, ("sum",)),
              ("m2g_dst", 512, ("sum",)), ("m2g_src", 512, ("sum",)),
-             ("stream", 75, ("sum", "min", "max")))
+             ("stream", 75, ("sum", "min", "max")),
+             ("zipf", 16, ("sum", "min", "max")))
     layouts = {k: segment_layout(ids, n) for k, (ids, n) in index_sets.items()}
+    zipf_counts = layouts["zipf"].offsets.diff()
     torch.cuda.synchronize()
     print(f"[chip_smoke] phase 5: ogb_products {n_big} nodes, "
           f"{big['dst'].shape[0]} edges; molecule {mol['dst'].shape[0]} "
           f"edges; full_graph_sm {sm['dst'].shape[0]} edges, graphcast mesh "
-          f"{n_mesh} nodes, {gc['mesh_dst'].shape[0]} edges; stream "
-          f"{STREAM_EDGES} edges into {STREAM_SEGMENTS} segments (inputs and "
-          f"layouts {time.perf_counter() - t0:.1f}s)", flush=True)
+          f"{n_mesh} nodes, {gc['mesh_dst'].shape[0]} edges; stream and "
+          f"Zipf stream {STREAM_EDGES} edges into {STREAM_SEGMENTS} segments, "
+          f"the Zipf stream's largest segment "
+          f"{int(zipf_counts.max())} edges (inputs and layouts "
+          f"{time.perf_counter() - t0:.1f}s)", flush=True)
     del big, mol, sm, gc
 
     err, timed = 0.0, {}
     for label, d, reduces in cases:
         ids, n = index_sets[label]
         lay = layouts[label]
-        counts = lay.offsets[1:] - lay.offsets[:-1]
-        empty = int((counts == 0).sum())
-        dropped = ids.shape[0] - int(lay.offsets[-1])
-        if empty == 0 and label in with_empty:
+        if label in with_empty and not bool((lay.offsets.diff() == 0).any()):
             fail(f"segment_reduce[{label}]: no empty segment")
         data = special_messages(ids.shape[0], d, seed=d, device=device)
-        seg_long = lay.seg.long()
         for reduce in reduces:
             tag = f"segment_reduce[{label},D={d},{reduce}]"
-            kw = dict(num_segments=n, reduce=reduce, layout=lay)
-            got = segment_reduce(data, ids, **kw)
-            want = segment_reduce_ref(data, ids, **kw)
-            err = max(err, same_bits(tag, got, want))
-            del got, want
-            ms = cuda_ms(lambda: segment_reduce(data, ids, **kw), 10)
-            plain = cuda_ms(lambda: segment_reduce_ref(data, ids, **kw), 3)
-            out = torch.zeros((n + 1, d), device=device)
-            if reduce == "sum":
-                lib = cuda_ms(lambda: out.index_add_(0, lay.seg, data), 10)
-            else:
-                index = seg_long[:, None].expand(-1, d)
-                lib = cuda_ms(lambda: out.scatter_reduce_(
-                    0, index, data, "amin" if reduce == "min" else "amax"),
-                    10)
-            del out
-            bound = segment_bytes(lay, d) / HBM_BYTES_PER_S * 1e3
-            timed[f"{label}/D={d}/{reduce}"] = dict(
-                ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-                edges=ids.shape[0], segments=n, empty_segments=empty,
-                dropped_ids=dropped)
-            print(f"[chip_smoke] {tag} bit-exact ({empty} empty segments, "
-                  f"{dropped} dropped ids): kernel {ms:.3f} ms, plain "
-                  f"{plain:.3f} ms, library {lib:.3f} ms, bound "
-                  f"{bound:.3f} ms", flush=True)
-        del data, seg_long
+            # the Zipf stream's hubs make the plain version's loop long
+            timed[f"{label}/D={d}/{reduce}"], case_err = case(
+                tag, data, ids, lay, reduce,
+                plain_reps=1 if label == "zipf" else 3)
+            err = max(err, case_err)
+        del data
         torch.cuda.empty_cache()
     head = timed["ogb_dst/D=47/sum"]
     return dict(
@@ -648,12 +720,9 @@ def bag_phase(device):
     from repro_torch.configs import get_arch
     from repro_torch.configs.recsys_family import shape_batch
     from repro_torch.data import DataCursor
-    from repro_torch.kernels import embedding_bag, segment_reduce
+    from repro_torch.kernels import embedding_bag
     from repro_torch.kernels.embedding_bag import embedding_bag_ref
-    from repro_torch.kernels.segment_reduce import (
-        segment_layout,
-        segment_reduce_ref,
-    )
+    from repro_torch.kernels.segment_reduce import segment_layout
     from repro_torch.launch.train import DIEN_TRAIN_BATCH
 
     cfg = get_arch("dien")[0]
@@ -739,35 +808,7 @@ def bag_phase(device):
         fail("embedding_bag[generic]: no empty bag or no dropped lookup")
     del table, ids, bags, w
 
-    # segment_reduce on DIEN training's backward: the gathered rows'
-    # gradients summed by item and category id (the history lookups and
-    # the bags' table gradient share the history's arrays), and the
-    # targets'
-    seg_timed = {}
-    for label, key, n in (("hist_items", "hist_items", cfg.n_items),
-                          ("hist_cats", "hist_cats", cfg.n_cats),
-                          ("target_item", "target_item", cfg.n_items),
-                          ("target_cat", "target_cat", cfg.n_cats)):
-        ids = train_ids[key].reshape(-1)
-        lay = segment_layout(ids, n)
-        data = special_messages(ids.shape[0], d, seed=d, device=device)
-        kw = dict(num_segments=n, layout=lay)
-        tag = f"segment_reduce[dien {label},D={d},sum]"
-        err_sr = same_bits(tag, segment_reduce(data, ids, **kw),
-                           segment_reduce_ref(data, ids, **kw))
-        ms = cuda_ms(lambda: segment_reduce(data, ids, **kw), 10)
-        plain = cuda_ms(lambda: segment_reduce_ref(data, ids, **kw), 3)
-        out = torch.zeros((n, d), device=device)
-        lib = cuda_ms(lambda: out.index_add_(0, ids, data), 10)
-        bound = segment_bytes(lay, d) / HBM_BYTES_PER_S * 1e3
-        seg_timed[f"dien_{label}/D={d}/sum"] = dict(
-            ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bound,
-            edges=ids.shape[0], segments=n, max_abs_err=err_sr)
-        print(f"[chip_smoke] {tag} bit-exact: kernel {ms:.3f} ms, plain "
-              f"{plain:.3f} ms, index_add_ {lib:.3f} ms, bound {bound:.3f} ms",
-              flush=True)
-        del data, out
-        torch.cuda.empty_cache()
+    seg_timed = dien_segment_cases(device, train_ids)
     head = timed["serve_bulk/item"]
     row = dict(
         name="embedding_bag", route="cuda",
@@ -777,6 +818,32 @@ def bag_phase(device):
         bound_ms=head["bound_ms"], bound_by="bytes",
         library_ms=head["library_ms"], bit_exact=True, shapes=timed)
     return row, seg_timed
+
+
+def dien_segment_cases(device, batch, case=segment_case):
+    """segment_reduce on DIEN training's backward for the training
+    ``batch``: the gathered rows' gradients summed by item and category id
+    (the history lookups and the bags' table gradient share the history's
+    arrays), and the targets'; each case run by ``case``. Returns the timed
+    cases."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.segment_reduce import segment_layout
+    cfg = get_arch("dien")[0]
+    d = cfg.embed_dim
+    seg_timed = {}
+    for label, n in (("hist_items", cfg.n_items), ("hist_cats", cfg.n_cats),
+                     ("target_item", cfg.n_items),
+                     ("target_cat", cfg.n_cats)):
+        ids = batch[label].reshape(-1)
+        lay = segment_layout(ids, n)
+        data = special_messages(ids.shape[0], d, seed=d, device=device)
+        timed, err = case(f"segment_reduce[dien {label},D={d},sum]", data,
+                          ids, lay, "sum")
+        seg_timed[f"dien_{label}/D={d}/sum"] = dict(timed, max_abs_err=err)
+        del data
+        torch.cuda.empty_cache()
+    return seg_timed
 
 
 def timed_calls(fn, reps: int):

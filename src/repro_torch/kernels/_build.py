@@ -35,12 +35,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
 SIGNATURES = {
-    # name: argtypes (restype is c_int = cudaGetLastError() for all but the
-    # error-string lookup)
+    # name: argtypes (restype is c_int: cudaGetLastError() for the runs, a
+    # count for segment_reduce_scratch and segment_reduce_max_width; the
+    # error-string lookup is apart)
     "relax_multi_run": (_I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
                         _P, _P, _P, _P, _P, _P, _P, _P),
     "edge_relax_run": (_I, _I, _P, _P, _P, _P, _LL, _P, _P, _P),
-    "segment_reduce_run": (_I, _I, _I, _P, _P, _P, _P, _P),
+    "segment_reduce_max_width": (),
+    "segment_reduce_scratch": (_I, _I, _I),
+    "segment_reduce_tiles": (_I, _I, _I, _P, _P, _P),
+    "segment_reduce_run": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
     "embedding_bag_run": (_I, _I, _P, _P, _P, _P, _P, _P, _P),
 }
 

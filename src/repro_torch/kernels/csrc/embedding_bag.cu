@@ -12,7 +12,7 @@
 //     [n_bags + 1]. It is the same layout segment_reduce.cu reads.
 //   * The bag sums (this file): a group of T threads per bag (T the smallest
 //     power of two >= D, at most 32, so a group never spans two warps), lanes
-//     over the D columns, as segment_reduce.cu groups them. Each group walks its
+//     over the D columns. Each group walks its
 //     bag's lookups in lookup order and, per column, adds the rounded product:
 //     acc = acc + (w * row) from +0.0, then writes the row once. No atomics, no
 //     fused multiply-add: the product is rounded before the add, as the

@@ -18,10 +18,38 @@ from its sums, which go through this kernel again:
 kernel's sum by ``idx``. PyTorch's own index backward scatters with atomics
 on CUDA, which would make the card's gradients differ from run to run.
 
-Bound on the card: bytes (see the source note in ``csrc/segment_reduce.cu``).
+The kernel (see the source note in ``csrc/segment_reduce.cu``):
+
+* What bounds it: bytes, read at random. Each edge's row is gathered by
+  ``perm``; on an H100 a random row costs at least a 64-byte access, so
+  small widths and hubs, not the adds, set the time.
+* Tiles: a first small kernel cuts the sorted stream of edges and segments
+  into tiles of equal length (a hub ends a tile of its own, runs of empty
+  segments are spread like edges, and a small input gets short tiles so it
+  still spreads over the card); one block reduces each tile. The
+  tiles are kept in the layout (``SegmentLayout.tiles``, by width and
+  stream), so every later call on that layout at that width is one
+  launch.
+* Staging: the block copies its perm entries, then every row of a chunk,
+  into shared memory with ``cp.async``, so thousands of row loads are in
+  flight instead of one dependent chain per segment; each row and perm
+  entry is read once for all columns.
+* Fills: threads write consecutive outputs, so empty segments are a flat
+  vectorised fill of the identity.
+* Order: each (segment, column) is still reduced by one thread in edge
+  order from the identity. Parallel partial sums would round differently
+  and break the bit-for-bit equality with the plain version and with
+  ``jax.ops.segment_sum``; what the threads share is the loads, the columns
+  and the segments.
+
+Widths up to ``segment_reduce_max_width()`` of the library (19,368 columns:
+two rows of a chunk must fit in a block's shared memory); a wider call on
+the card raises ValueError.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -71,17 +99,47 @@ def _launch(rows: torch.Tensor, layout: SegmentLayout, reduce: str):
         return segment_reduce_ref(rows, layout.seg, num_segments=n,
                                   reduce=reduce, layout=layout)
     lib = _build.load_library()
-    out = torch.empty((n, rows.shape[1]), dtype=torch.float32,
-                      device=rows.device)
-    with torch.cuda.device(rows.device):
-        stream = torch.cuda.current_stream(rows.device).cuda_stream
+    e, d = rows.shape
+    out = torch.empty((n, d), dtype=torch.float32, device=rows.device)
+    # the raw handle of the current stream, and the device made current
+    # only when it is not: the host's cost per call sets the time of the
+    # small shapes' steps
+    stream = torch._C._cuda_getCurrentRawStream(rows.device.index)
+    guard = (contextlib.nullcontext()
+             if rows.device.index == torch.cuda.current_device()
+             else torch.cuda.device(rows.device))
+    with guard:
+        start = _tiles(lib, layout, e, d, stream)
         segment_reduce.launches += 1
-        rc = lib.segment_reduce_run(REDUCE_CODES[reduce], n, rows.shape[1],
+        rc = lib.segment_reduce_run(REDUCE_CODES[reduce], n, e, d,
                                     rows.data_ptr(), layout.perm.data_ptr(),
-                                    layout.offsets.data_ptr(), out.data_ptr(),
-                                    stream)
+                                    layout.offsets.data_ptr(),
+                                    start.data_ptr(), out.data_ptr(), stream)
     _build.check(lib, rc, "segment_reduce")
     return out
+
+
+def _tiles(lib, layout: SegmentLayout, e: int, d: int, stream: int):
+    """The kernel's tile starts for ``layout`` at width ``d`` on ``stream``:
+    computed by the tile kernel at the first call and kept in the layout."""
+    start = layout.tiles.get((d, stream))
+    if start is not None:
+        return start
+    n = layout.num_segments
+    size = lib.segment_reduce_scratch(n, e, d)
+    if size < 0:
+        widest = lib.segment_reduce_max_width()
+        if d > widest:
+            raise ValueError(f"segment_reduce: width {d} is above the card "
+                             f"kernel's limit of {widest} columns")
+        raise ValueError(f"segment_reduce: {e} ids into {n} segments at width "
+                         f"{d} need a tile scratch of 2^31 or more ints")
+    start = torch.empty((size,), dtype=torch.int32, device=layout.offsets.device)
+    rc = lib.segment_reduce_tiles(n, e, d, layout.offsets.data_ptr(),
+                                  start.data_ptr(), stream)
+    _build.check(lib, rc, "segment_reduce tiles")
+    layout.tiles[(d, stream)] = start
+    return start
 
 
 def _gather_padded(rows: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
@@ -128,7 +186,10 @@ def segment_reduce(data, seg, *, num_segments: int, reduce: str = "sum",
     if layout is None:
         layout = segment_layout(seg, num_segments)
     rows = data if data.dim() == 2 else data[:, None]
-    out = _SegmentReduce.apply(rows, layout, reduce)
+    if torch.is_grad_enabled() and rows.requires_grad:
+        out = _SegmentReduce.apply(rows, layout, reduce)
+    else:   # no graph to record: skip autograd's cost per call
+        out = _launch(rows, layout, reduce)
     return out if data.dim() == 2 else out[:, 0]
 
 

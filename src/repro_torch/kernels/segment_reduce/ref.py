@@ -33,12 +33,15 @@ class SegmentLayout(NamedTuple):
     seg: int32 [E], the ids with those outside ``[0, num_segments)`` set to
     ``num_segments``; perm: int32 [E], a stable sort of ``seg`` (dropped
     edges last); offsets: int32 [num_segments + 1], segment s's edges are
-    ``perm[offsets[s]:offsets[s + 1]]``.
+    ``perm[offsets[s]:offsets[s + 1]]``; tiles: the card kernel's tile
+    starts by (width, stream), filled at its first call there (the plain
+    version ignores them).
     """
     seg: torch.Tensor
     perm: torch.Tensor
     offsets: torch.Tensor
     num_segments: int
+    tiles: dict
 
 
 def segment_layout(seg: torch.Tensor, num_segments: int) -> SegmentLayout:
@@ -55,7 +58,8 @@ def segment_layout(seg: torch.Tensor, num_segments: int) -> SegmentLayout:
     bounds = torch.arange(num_segments + 1, dtype=torch.int32,
                           device=seg.device)
     offsets = torch.searchsorted(sorted_seg, bounds, out_int32=True)
-    return SegmentLayout(seg_c, perm.to(torch.int32), offsets, num_segments)
+    return SegmentLayout(seg_c, perm.to(torch.int32), offsets, num_segments,
+                         {})
 
 
 def _combine(reduce: str, acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

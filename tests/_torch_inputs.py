@@ -90,3 +90,41 @@ def bag_lookups(v, d, n, b, seed, *, oob=False, zeros=False, infs=False):
     if b > 2:
         bags[bags == 1] = 0
     return table, ids, bags, w
+
+
+def index_case(case, d, seed, *, small=False):
+    """(data [e, d] float32, seg [e] int32, n) for an index array at the
+    edges of the card kernel's tiling, with -0.0/+0.0, ±inf and NaN entries:
+
+    * ``hub``: one segment holding about 10^5 ids (1,000 with ``small``),
+      more than a tile, and a second of 5,000 (300), among random ids and
+      a few sentinel ids;
+    * ``sparse``: 2^20 segments (2^14 with ``small``) and only 100 ids,
+      so almost every segment is empty;
+    * ``dropped``: every id out of range (the sentinel n, past it, and
+      negative).
+    """
+    rng = np.random.default_rng(seed + 307)
+    if case == "hub":
+        n = 41 if small else 1000
+        big, mid, rest = ((1000, 300, 500) if small
+                          else (100_000, 5_000, 45_000))
+        seg = np.concatenate([np.full(big, n // 2), np.full(mid, 3),
+                              rng.integers(0, n, rest), np.full(10, n)])
+        seg = rng.permutation(seg)
+    elif case == "sparse":
+        n = 1 << (14 if small else 20)
+        seg = rng.integers(0, n, 100)
+    elif case == "dropped":
+        n = 41 if small else 3000
+        e = 1500 if small else 20_000
+        seg = np.where(rng.random(e) < 0.5, rng.integers(n, n + 50, e),
+                       rng.integers(-50, 0, e))
+    else:
+        raise ValueError(case)
+    e = seg.shape[0]
+    data = rng.standard_normal((e, d)).astype(np.float32)
+    for value, share in ((-0.0, 0.05), (0.0, 0.05), (np.inf, 0.01),
+                         (-np.inf, 0.01), (np.nan, 0.002)):
+        data[rng.random((e, d)) < share] = np.float32(value)
+    return data, seg.astype(np.int32), n

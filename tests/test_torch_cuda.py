@@ -21,7 +21,14 @@ torch = pytest.importorskip("torch")
 
 import numpy as np  # noqa: E402
 
-from _torch_inputs import bag_lookups, edges, messages, state, values  # noqa: E402
+from _torch_inputs import (  # noqa: E402
+    bag_lookups,
+    edges,
+    index_case,
+    messages,
+    state,
+    values,
+)
 from repro_torch.graph.semiring import ALL_SEMIRINGS  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     edge_relax,
@@ -95,13 +102,31 @@ def _same_bits(got, want):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
+# random ids at the widths where the kernel's 16-, 8- and 4-byte pieces and
+# its column groups change; and ``index_case``'s index arrays: a segment of
+# 10^5 ids (more than a tile) and one of 5,000, 2^20 segments holding 100
+# ids, every id out of range
+SEGMENT_CASES = ([("random", d) for d in (1, 2, 3, 4, 8, 16, 17, 18, 32, 33,
+                                          47, 64, 65, 75, 128, 129, 130, 512,
+                                          513)]
+                 + [(case, d) for case in ("hub", "sparse", "dropped")
+                    for d in (1, 18, 129)])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("reduce", ["sum", "min", "max"])
-@pytest.mark.parametrize("d", [1, 3, 16, 47, 75, 130])
-def test_cuda_segment_reduce_matches_plain(cuda_device, reduce, d):
-    """Empty segments, sentinel and out-of-range ids, -0.0/±inf entries."""
-    n = 2500
-    data, seg = _on(cuda_device, *messages(n, 60_000, d, seed=d, oob=True))
+@pytest.mark.parametrize("case,d", SEGMENT_CASES,
+                         ids=[str(d) if c == "random" else f"{c}-{d}"
+                              for c, d in SEGMENT_CASES])
+def test_cuda_segment_reduce_matches_plain(cuda_device, reduce, case, d):
+    """Empty segments, sentinel and out-of-range ids, -0.0/±inf entries
+    (and NaN entries in the index cases)."""
+    if case == "random":
+        n = 2500
+        data, seg = messages(n, 60_000, d, seed=d, oob=True)
+    else:
+        data, seg, n = index_case(case, d, seed=d)
+    data, seg = _on(cuda_device, data, seg)
     lay = segment_layout(seg, n)
     before = segment_reduce.launches
     got = segment_reduce(data, seg, num_segments=n, reduce=reduce, layout=lay)
@@ -109,6 +134,32 @@ def test_cuda_segment_reduce_matches_plain(cuda_device, reduce, d):
     want = segment_reduce_ref(data, seg, num_segments=n, reduce=reduce,
                               layout=lay)
     _same_bits(got, want)
+    # a second call on the layout reuses the tiles the first one kept
+    assert len(lay.tiles) == 1
+    got = segment_reduce(-data, seg, num_segments=n, reduce=reduce,
+                         layout=lay)
+    assert segment_reduce.launches == before + 2 and len(lay.tiles) == 1
+    _same_bits(got, segment_reduce_ref(-data, seg, num_segments=n,
+                                       reduce=reduce, layout=lay))
+
+
+@pytest.mark.cuda
+def test_cuda_segment_reduce_width_limit(cuda_device):
+    """Rows up to the kernel's widest are reduced bit for bit; a wider call
+    raises ValueError naming the width and the limit."""
+    from repro_torch.kernels import _build
+    widest = _build.load_library().segment_reduce_max_width()
+    rng = np.random.default_rng(5)
+    seg = rng.integers(0, 9, 40).astype(np.int32)
+    for d in (widest, widest + 1):
+        data = rng.standard_normal((40, d)).astype(np.float32)
+        x, s = _on(cuda_device, data, seg)
+        if d > widest:
+            with pytest.raises(ValueError, match=f"width {d} .*{widest}"):
+                segment_reduce(x, s, num_segments=7)
+        else:
+            _same_bits(segment_reduce(x, s, num_segments=7),
+                       segment_reduce_ref(x, s, num_segments=7))
 
 
 @pytest.mark.cuda

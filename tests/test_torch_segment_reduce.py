@@ -25,7 +25,7 @@ from repro_torch.kernels.segment_reduce import (  # noqa: E402
     segment_layout,
     segment_reduce_ref,
 )
-from _torch_inputs import messages  # noqa: E402
+from _torch_inputs import index_case, messages  # noqa: E402
 
 REDUCES = ("sum", "min", "max")
 
@@ -39,16 +39,35 @@ def _t(*arrays):
     return tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
 
 
+# The widths at the card kernel's boundaries (16-, 8- and 4-byte pieces, a
+# warp's 32 and 128 columns, GNN and DIEN widths) on random ids, and the
+# index arrays of ``index_case`` at three widths (small sizes).
+WIDTH_CASES = [("random", d) for d in (1, 2, 3, 4, 5, 8, 17, 18, 24, 32,
+                                       33, 47, 64, 65, 128, 129, 130, 512,
+                                       513)]
+INDEX_CASES = [(case, d) for case in ("hub", "sparse", "dropped")
+               for d in (1, 18, 129)]
+
+
 @pytest.mark.parametrize("reduce", REDUCES)
-@pytest.mark.parametrize("d", [1, 5, 24, 130])
-def test_plain_equals_jax_ref_and_pallas_bit_for_bit(reduce, d):
+@pytest.mark.parametrize("case,d", WIDTH_CASES + INDEX_CASES,
+                         ids=[str(d) if c == "random" else f"{c}-{d}"
+                              for c, d in WIDTH_CASES + INDEX_CASES])
+def test_plain_equals_jax_ref_and_pallas_bit_for_bit(reduce, case, d):
     """Empty segments, the sentinel id, ids past it, -0.0/+0.0 and ±inf
-    entries (sums of +inf and -inf give NaN, also bit-equal)."""
-    n = 41
-    data, seg = messages(n, 1500, d, seed=d, oob=True)
+    entries (sums of +inf and -inf give NaN, also bit-equal); the index
+    cases add NaN entries, a hub, 2^14 segments holding 100 ids, and every
+    id dropped (negative ids too, which the Pallas kernel is given as the
+    sentinel: its scatter wraps negative indices)."""
+    if case == "random":
+        n = 41
+        data, seg = messages(n, 1500, d, seed=d, oob=True)
+    else:
+        data, seg, n = index_case(case, d, seed=d, small=True)
     want = j_ref(jnp.asarray(data), jnp.asarray(seg), num_segments=n,
                  reduce=reduce)
-    pallas = j_segment_reduce(jnp.asarray(data), jnp.asarray(seg),
+    pallas = j_segment_reduce(jnp.asarray(data),
+                              jnp.asarray(np.where(seg < 0, n, seg)),
                               num_segments=n, reduce=reduce, use_pallas=True,
                               interpret=True)
     got = segment_reduce(*_t(data, seg), num_segments=n, reduce=reduce)
