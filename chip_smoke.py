@@ -57,12 +57,16 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    main path gives it (one per history row of serve_p99's 512 rows,
    serve_bulk's 262,144, the retrieval user and phase 10's 16,384
    training rows, on the 2^23-row item table and the 10^4-row category
-   table, the mask as weights) and a generic case (unsorted bags, random
-   weights, -0.0/±inf entries, empty bags, the sentinel bag and bags past
-   it); then segment_reduce on the training backward's index arrays (by
-   item and category id, D = 18; timed as in phase 5). Prints kernel,
-   plain, library (``F.embedding_bag``, ``index_add_``) and bound ms per
-   case;
+   table, the mask as weights, in the contiguous layout whose perm the
+   kernel skips), one bag of 5,000 lookups, 4,096 bags of 1-3 lookups at
+   D = 8, and a generic case (unsorted bags, random weights, -0.0/±inf
+   entries, empty bags, the sentinel bag and bags past it); then
+   segment_reduce on the training backward's index arrays (by item and
+   category id, D = 18; timed as in phase 5). Prints per case the
+   kernel's ms (back-to-back calls, events), device µs (calls queued
+   behind a sleep) and the wrapper's host µs per call, plain ms,
+   ``F.embedding_bag``'s ms and device µs, the bytes bound and the sector
+   floor (each row counted as the 32-byte sectors it touches);
 9. DIEN serving at full width (``dien_forward`` at serve_p99 and
    serve_bulk, ``dien_score_candidates`` at retrieval_cand: 1 user x
    1,000,448 candidates in chunks), the embedding_bag count set to 0 just
@@ -85,6 +89,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import math
 import pathlib
@@ -701,28 +706,133 @@ def default_lr_witness(device):
 
 def bag_bytes(layout, d: int) -> int:
     """Bytes an embedding_bag call must move: each in-range lookup's id,
-    weight and perm entry and its 4 D-byte row, the offsets, and the
+    weight and 4 D-byte row (and its perm entry, unless the layout's perm
+    is the identity, which the kernel does not read), the offsets, and the
     [n_bags, D] output (the kernel reads no bag id: perm and offsets carry
     them)."""
     n = layout.num_segments
     kept = int(layout.offsets[-1])
-    return kept * (12 + 4 * d) + 4 * (n + 1) + 4 * n * d
+    per = 8 + (0 if layout.identity_perm else 4)
+    return kept * (per + 4 * d) + 4 * (n + 1) + 4 * n * d
 
 
-def bag_phase(device):
+def bag_sector_bytes(layout, ids, d: int) -> int:
+    """``bag_bytes`` with each in-range lookup's row counted as the 32-byte
+    sectors a random read of it touches (a 72-byte row at D = 18 touches
+    3): what the card moves at the least when no row is found in a cache."""
+    import torch
+    kept = int(layout.offsets[-1])
+    if layout.identity_perm:
+        rows = ids[:kept].long()
+    else:
+        rows = ids.index_select(0, layout.perm[:kept]).long()
+    first = rows * (4 * d)
+    sectors = int(torch.sum((first + 4 * d - 1) // 32 - first // 32 + 1))
+    return bag_bytes(layout, d) + 32 * sectors - kept * 4 * d
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` runs queued behind a 25 ms
+    sleep on the card, after one warm-up run: the host enqueues every run
+    before the card reaches them, so the time between the events is the
+    card's own."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_us(fn, reps: int) -> float:
+    """Host microseconds per call of ``fn``, its runs queued behind a 25 ms
+    sleep on the card so that the host never waits for the card."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    per_call = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return per_call
+
+
+def bag_case(tag, table, ids, w, lay, library=None):
+    """One embedding_bag case: bit for bit against the plain version, then
+    the kernel's ms (back-to-back calls, events), device µs (calls queued
+    behind a sleep), the wrapper's host µs per call, the plain version's
+    ms, the bytes bound and the sector floor; and, where ``library`` (one
+    ``F.embedding_bag`` call on the same bags) is given, its ms and device
+    µs, after checking it computes the same function within 1e-5 of the
+    largest output. Returns (timed dict, max abs err)."""
+    from repro_torch.kernels import embedding_bag
+    from repro_torch.kernels.embedding_bag import embedding_bag_ref
+    n_bags = lay.num_segments
+    kw = dict(n_bags=n_bags, layout=lay)
+
+    def kernel():
+        return embedding_bag(table, ids, lay.seg, w, **kw)
+    want = embedding_bag_ref(table, ids, lay.seg, w, **kw)
+    err = same_bits(f"embedding_bag[{tag}]", kernel(), want)
+    lib = lib_us = None
+    if library is not None:
+        scale = max(float(want.abs().max()), 1e-30)
+        if float((library() - want).abs().max()) > 1e-5 * scale:
+            fail(f"embedding_bag[{tag}]: F.embedding_bag computes another "
+                 "function")
+        lib = cuda_ms(library, 100)
+        lib_us = device_ms(library, 20) * 1e3
+    del want
+    counts = lay.offsets[1:] - lay.offsets[:-1]
+    d = table.shape[1]
+    timed = dict(
+        ms=cuda_ms(kernel, 100), device_us=device_ms(kernel, 20) * 1e3,
+        host_us=host_us(kernel, 20),
+        plain_ms=cuda_ms(lambda: embedding_bag_ref(table, ids, lay.seg, w,
+                                                   **kw), 3),
+        library_ms=lib, library_device_us=lib_us,
+        bound_ms=bag_bytes(lay, d) / HBM_BYTES_PER_S * 1e3,
+        sector_floor_ms=bag_sector_bytes(lay, ids, d) / HBM_BYTES_PER_S * 1e3,
+        lookups=ids.shape[0], bags=n_bags, table_rows=table.shape[0],
+        width=d, perm_read=not lay.identity_perm,
+        empty_bags=int((counts == 0).sum()),
+        dropped_lookups=ids.shape[0] - int(lay.offsets[-1]))
+    lib_txt = (f"{lib:.3f} ms ({lib_us:.1f} us on the device)"
+               if lib is not None else "none")
+    print(f"[chip_smoke] embedding_bag[{tag}] bit-exact "
+          f"({timed['empty_bags']} empty bags, {timed['dropped_lookups']} "
+          f"dropped lookups): kernel {timed['ms']:.3f} ms, "
+          f"{timed['device_us']:.1f} us on the device, host "
+          f"{timed['host_us']:.1f} us per call; plain "
+          f"{timed['plain_ms']:.3f} ms, F.embedding_bag {lib_txt}, bound "
+          f"{timed['bound_ms']:.4f} ms, sector floor "
+          f"{timed['sector_floor_ms']:.4f} ms", flush=True)
+    return timed, err
+
+
+def bag_phase(device, case=bag_case):
     """Phase 8: embedding_bag against its plain version on the card, bit
     for bit, on the bags DIEN's serving and training give it (item and
-    category tables, the mask as weights) and on a generic case; then
-    segment_reduce on the training backward's index arrays. Timed per
-    case. Returns (embedding_bag row, segment_reduce cases)."""
+    category tables, the mask as weights, the contiguous layout), one long
+    bag, many short bags at D = 8, and a generic case; each case run and
+    timed by ``case``. Returns (embedding_bag row, the training batch)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.configs import get_arch
     from repro_torch.configs.recsys_family import shape_batch
     from repro_torch.data import DataCursor
-    from repro_torch.kernels import embedding_bag
-    from repro_torch.kernels.embedding_bag import embedding_bag_ref
-    from repro_torch.kernels.segment_reduce import segment_layout
+    from repro_torch.kernels.segment_reduce import (
+        contiguous_layout,
+        segment_layout,
+    )
     from repro_torch.launch.train import DIEN_TRAIN_BATCH
 
     cfg = get_arch("dien")[0]
@@ -735,62 +845,57 @@ def bag_phase(device):
                                  device=device) * 0.02}
     err, timed = 0.0, {}
 
-    def run_case(tag, table, ids, bags, w, n_bags, lib_ids=None):
+    def run_case(tag, table, ids, w, lay, library=None):
         nonlocal err
-        lay = segment_layout(bags, n_bags)
-        kw = dict(n_bags=n_bags, layout=lay)
-        got = embedding_bag(table, ids, bags, w, **kw)
-        want = embedding_bag_ref(table, ids, bags, w, **kw)
-        err = max(err, same_bits(f"embedding_bag[{tag}]", got, want))
-        lib = None
-        if lib_ids is not None:   # F.embedding_bag on the same [B, S] bags
-            w2d = w.view(lib_ids.shape)
+        timed[tag], e = case(tag, table, ids, w, lay, library)
+        err = max(err, e)
 
-            def library():
-                return F.embedding_bag(lib_ids, table, mode="sum",
+    def bags_2d(ids2d, table, w):
+        """F.embedding_bag on [B, S] ids: one bag per row."""
+        ids2d, w2d = ids2d.long(), w.view(ids2d.shape)
+        return lambda: F.embedding_bag(ids2d, table, mode="sum",
                                        per_sample_weights=w2d)
-            scale = max(float(want.abs().max()), 1e-30)
-            if float((library() - want).abs().max()) > 1e-5 * scale:
-                fail(f"embedding_bag[{tag}]: F.embedding_bag computes "
-                     "another function")
-            lib = cuda_ms(library, 20)
-        del got, want
-        ms = cuda_ms(lambda: embedding_bag(table, ids, bags, w, **kw), 20)
-        plain = cuda_ms(lambda: embedding_bag_ref(table, ids, bags, w, **kw),
-                        3)
-        bound = bag_bytes(lay, table.shape[1]) / HBM_BYTES_PER_S * 1e3
-        counts = lay.offsets[1:] - lay.offsets[:-1]
-        timed[tag] = dict(ms=ms, plain_ms=plain, library_ms=lib,
-                          bound_ms=bound, lookups=ids.shape[0], bags=n_bags,
-                          table_rows=table.shape[0],
-                          empty_bags=int((counts == 0).sum()),
-                          dropped_lookups=ids.shape[0] - int(lay.offsets[-1]))
-        lib_txt = f"{lib:.3f} ms" if lib is not None else "none"
-        print(f"[chip_smoke] embedding_bag[{tag}] bit-exact "
-              f"({timed[tag]['empty_bags']} empty bags, "
-              f"{timed[tag]['dropped_lookups']} dropped lookups): kernel "
-              f"{ms:.3f} ms, plain {plain:.3f} ms, F.embedding_bag {lib_txt}, "
-              f"bound {bound:.3f} ms", flush=True)
 
     # the path's bags: one per history row and table, the mask as weights
     path = (("serve_p99", None), ("serve_bulk", None),
             ("retrieval_cand", None), ("train_batch", DIEN_TRAIN_BATCH))
-    train_ids = None
+    train_batch = None
     for shape_id, rows in path:
         batch = shape_batch(cfg, shape_id, DataCursor(0, 0), device, rows)
         b, s = batch["hist_items"].shape
-        bags = torch.arange(b, dtype=torch.int32,
-                            device=device).repeat_interleave(s)
+        lay = contiguous_layout(b, s, device)
         w = batch["hist_mask"].reshape(-1).float()
         for name, key in (("item", "hist_items"), ("cat", "hist_cats")):
-            ids = batch[key].reshape(-1)
-            run_case(f"{shape_id}/{name}", tables[name], ids, bags, w, b,
-                     lib_ids=batch[key].long())
+            run_case(f"{shape_id}/{name}", tables[name],
+                     batch[key].reshape(-1), w, lay,
+                     bags_2d(batch[key], tables[name], w))
         if shape_id == "train_batch":
-            train_ids = batch
+            train_batch = batch
         else:
             del batch
         torch.cuda.empty_cache()
+
+    # one long bag on the item table; 4,096 bags of 1-3 lookups at D = 8
+    ids = torch.randint(0, cfg.n_items, (5000,), generator=gen,
+                        device=device, dtype=torch.int32)
+    w = torch.randn(5000, generator=gen, device=device)
+    run_case("long_bag/item", tables["item"], ids, w,
+             contiguous_layout(1, 5000, device),
+             bags_2d(ids[None], tables["item"], w))
+    n_bags = 4096
+    sizes = torch.randint(1, 4, (n_bags,), generator=gen, device=device)
+    bags = torch.repeat_interleave(
+        torch.arange(n_bags, dtype=torch.int32, device=device), sizes)
+    table = torch.randn((1 << 20, 8), generator=gen, device=device)
+    ids = torch.randint(0, 1 << 20, bags.shape, generator=gen, device=device,
+                        dtype=torch.int32)
+    w = torch.randn(bags.shape, generator=gen, device=device)
+    lay = segment_layout(bags, n_bags)
+    ids_l, offsets_l = ids.long(), lay.offsets.long()
+    run_case("short_bags/D=8", table, ids, w, lay,
+             lambda: F.embedding_bag(ids_l, table, offsets_l, mode="sum",
+                                     per_sample_weights=w,
+                                     include_last_offset=True))
 
     # generic: unsorted bags, random weights, -0.0/±inf entries, empty
     # bags, the sentinel bag and bags past it
@@ -802,13 +907,12 @@ def bag_phase(device):
                          device=device, dtype=torch.int32)
     bags[bags == 1] = 0                            # an empty bag
     w = special_messages(lookups, 1, seed=19, device=device)[:, 0].contiguous()
-    run_case("generic", table, ids, bags, w, n_bags)
+    run_case("generic", table, ids, w, segment_layout(bags, n_bags))
     if timed["generic"]["empty_bags"] == 0 or \
             timed["generic"]["dropped_lookups"] == 0:
         fail("embedding_bag[generic]: no empty bag or no dropped lookup")
     del table, ids, bags, w
 
-    seg_timed = dien_segment_cases(device, train_ids)
     head = timed["serve_bulk/item"]
     row = dict(
         name="embedding_bag", route="cuda",
@@ -817,7 +921,7 @@ def bag_phase(device):
         max_abs_err=err, ms=head["ms"], plain_ms=head["plain_ms"],
         bound_ms=head["bound_ms"], bound_by="bytes",
         library_ms=head["library_ms"], bit_exact=True, shapes=timed)
-    return row, seg_timed
+    return row, train_batch
 
 
 def dien_segment_cases(device, batch, case=segment_case):
@@ -865,9 +969,11 @@ def serve_phase(device):
     """Phase 9: DIEN serving at full width on the card, the embedding_bag
     count set to 0 just before each shape's calls and read just after:
     ``dien_forward`` at serve_p99 and serve_bulk, ``dien_score_candidates``
-    at retrieval_cand. Then retrieval against the forward's margins for the
-    same candidates, and the card's serve_p99 logits against the CPU's from
-    host copies of the weights and batch. Returns (launches, per-shape
+    at retrieval_cand (each output's SHA-256 recorded, so two trees'
+    outputs can be compared bit for bit). Then retrieval against the
+    forward's margins for the same candidates, and the card's serve_p99
+    logits against the CPU's from host copies of the weights and batch.
+    Returns (launches, per-shape
     table)."""
     import torch
     from repro_torch.configs import get_arch
@@ -911,7 +1017,9 @@ def serve_phase(device):
                                   ms_per_call=warm,
                                   rows_per_s=rows / warm * 1e3,
                                   peak_gib=peak,
-                                  embedding_bag_launches=launched)
+                                  embedding_bag_launches=launched,
+                                  out_sha256=hashlib.sha256(
+                                      out.cpu().numpy().tobytes()).hexdigest())
             unit = "candidates" if retrieval else "rows"
             print(f"[chip_smoke] phase 9: DIEN {shape_id} ({rows} {unit}): "
                   f"cold {cold:.1f} ms, warm {warm:.1f} ms/call "
@@ -1153,8 +1261,9 @@ def main() -> None:
 
     # 8. embedding_bag vs plain (and segment_reduce on DIEN's backward)
     t0 = time.perf_counter()
-    bag_row, dien_segments = bag_phase(device)
-    segment_row["shapes"].update(dien_segments)
+    bag_row, train_batch = bag_phase(device)
+    segment_row["shapes"].update(dien_segment_cases(device, train_batch))
+    del train_batch
     torch.cuda.empty_cache()
     print(f"[chip_smoke] phase 8 done in {time.perf_counter() - t0:.1f}s",
           flush=True)

@@ -32,25 +32,6 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 OUT = ROOT / "chiprun_out" / "segment_bench.json"
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device time of ``fn`` over ``reps`` runs queued behind a 25 ms
-    sleep on the card, after one warm-up run: the host enqueues every run
-    before the card reaches them, so the time between the events is the
-    card's own."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(50_000_000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def bench_case(tag, data, ids, lay, reduce, plain_reps=3):
     """``chip_smoke.segment_case`` plus the device times and the gather."""
     import chip_smoke
@@ -64,8 +45,9 @@ def bench_case(tag, data, ids, lay, reduce, plain_reps=3):
         return segment_reduce(data, ids, **kw)
     kept_perm = lay.perm[:int(lay.offsets[-1])]
     timed.update(
-        device_ms=device_ms(lambda: segment_reduce(data, ids, **kw), 10),
-        fresh_device_ms=device_ms(fresh, 10),
+        device_ms=chip_smoke.device_ms(
+            lambda: segment_reduce(data, ids, **kw), 10),
+        fresh_device_ms=chip_smoke.device_ms(fresh, 10),
         gather_ms=chip_smoke.cuda_ms(
             lambda: data.index_select(0, kept_perm), 10))
     print(f"[bench] {tag}: device {timed['device_ms']:.4f} ms, with new "

@@ -45,7 +45,7 @@ SIGNATURES = {
     "segment_reduce_scratch": (_I, _I, _I),
     "segment_reduce_tiles": (_I, _I, _I, _P, _P, _P),
     "segment_reduce_run": (_I, _I, _I, _I, _P, _P, _P, _P, _P, _P),
-    "embedding_bag_run": (_I, _I, _P, _P, _P, _P, _P, _P, _P),
+    "embedding_bag_run": (_I, _I, _LL, _P, _P, _P, _P, _P, _P, _P),
 }
 
 _lib = None

@@ -10,9 +10,12 @@ goes through the kernel, unpadded.
 
 The layout is ``segment_reduce``'s: ``segment_layout(bags, n_bags)``, a
 stable sort of the bag ids, computed here if not given (pass it to share
-one sort among the calls on the same bags).
+one sort among the calls on the same bags), or ``contiguous_layout`` for
+bags that are contiguous runs of equal length, whose identity perm the
+kernel does not read.
 
-``embedding_bag`` is differentiable (a ``torch.autograd.Function``). The
+``embedding_bag`` is differentiable (a ``torch.autograd.Function``, entered
+only when the table or the weights require a gradient). The
 TPU kernel has no backward kernel, so the backward is plain PyTorch apart
 from its sums:
 
@@ -30,6 +33,8 @@ Bound on the card: bytes (see the source note in ``csrc/embedding_bag.cu``).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -58,16 +63,20 @@ def _check_inputs(table, ids, bags, weights, n_bags, layout):
     if not (table.is_contiguous() and ids.is_contiguous()
             and weights.is_contiguous()):
         raise ValueError("table, ids and weights must be contiguous")
-    if any(t.device != table.device for t in (ids, bags, weights)):
+    device = table.device
+    if (ids.device != device or bags.device != device
+            or weights.device != device):
         raise ValueError(f"table, ids, bags and weights must share a device, "
-                         f"got {table.device}, {ids.device}, {bags.device}, "
+                         f"got {device}, {ids.device}, {bags.device}, "
                          f"{weights.device}")
-    if table.device.type not in ("cpu", "cuda"):
+    if not (table.is_cuda or table.is_cpu):
         raise ValueError(f"embedding_bag runs on cuda or cpu tensors, not "
-                         f"{table.device}")
+                         f"{device}")
+    # a layout's own seg passed as the bags (as DIEN does) fits them
     if layout is not None and (layout.num_segments != n_bags
-                               or layout.seg.shape != bags.shape
-                               or layout.seg.device != table.device):
+                               or layout.seg is not bags
+                               and (layout.seg.shape != bags.shape
+                                    or layout.seg.device != device)):
         raise ValueError(f"layout is for {layout.num_segments} bags and "
                          f"{layout.seg.shape[0]} lookups on "
                          f"{layout.seg.device}, not {n_bags} and "
@@ -83,14 +92,20 @@ def _launch(table, ids, weights, layout: SegmentLayout) -> torch.Tensor:
     lib = _build.load_library()
     out = torch.empty((n, table.shape[1]), dtype=torch.float32,
                       device=table.device)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
+    # the raw handle of the current stream, and the device made current
+    # only when it is not: the host's cost per call sets the time of the
+    # small serving calls
+    index = table.device.index
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    guard = (contextlib.nullcontext() if index == torch.cuda.current_device()
+             else torch.cuda.device(table.device))
+    with guard:
         embedding_bag.launches += 1
-        rc = lib.embedding_bag_run(n, table.shape[1], table.data_ptr(),
-                                   ids.data_ptr(), weights.data_ptr(),
-                                   layout.perm.data_ptr(),
-                                   layout.offsets.data_ptr(), out.data_ptr(),
-                                   stream)
+        rc = lib.embedding_bag_run(
+            n, table.shape[1], ids.shape[0], table.data_ptr(), ids.data_ptr(),
+            weights.data_ptr(),
+            None if layout.identity_perm else layout.perm.data_ptr(),
+            layout.offsets.data_ptr(), out.data_ptr(), stream)
     _build.check(lib, rc, "embedding_bag")
     return out
 
@@ -139,7 +154,10 @@ def embedding_bag(table, ids, bags, weights, *, n_bags: int,
     _check_inputs(table, ids, bags, weights, n_bags, layout)
     if layout is None:
         layout = segment_layout(bags, n_bags)
-    return _EmbeddingBag.apply(table, weights, ids, layout)
+    if torch.is_grad_enabled() and (table.requires_grad
+                                    or weights.requires_grad):
+        return _EmbeddingBag.apply(table, weights, ids, layout)
+    return _launch(table, ids, weights, layout)
 
 
 embedding_bag.launches = 0

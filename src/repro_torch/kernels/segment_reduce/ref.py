@@ -35,13 +35,15 @@ class SegmentLayout(NamedTuple):
     edges last); offsets: int32 [num_segments + 1], segment s's edges are
     ``perm[offsets[s]:offsets[s + 1]]``; tiles: the card kernel's tile
     starts by (width, stream), filled at its first call there (the plain
-    version ignores them).
+    version ignores them); identity_perm: ``perm`` is ``arange(E)`` (the
+    ids are sorted and all kept), so the embedding_bag kernel skips it.
     """
     seg: torch.Tensor
     perm: torch.Tensor
     offsets: torch.Tensor
     num_segments: int
     tiles: dict
+    identity_perm: bool = False
 
 
 def segment_layout(seg: torch.Tensor, num_segments: int) -> SegmentLayout:
@@ -60,6 +62,22 @@ def segment_layout(seg: torch.Tensor, num_segments: int) -> SegmentLayout:
     offsets = torch.searchsorted(sorted_seg, bounds, out_int32=True)
     return SegmentLayout(seg_c, perm.to(torch.int32), offsets, num_segments,
                          {})
+
+
+def contiguous_layout(n_bags: int, bag_len: int,
+                      device: str | torch.device) -> SegmentLayout:
+    """The :class:`SegmentLayout` of ``arange(n_bags).repeat_interleave(
+    bag_len)`` (``n_bags`` runs of ``bag_len`` ids, as DIEN's history rows
+    give them) without a sort: the same ``seg``, ``perm`` and ``offsets``
+    as ``segment_layout`` of those ids, marked ``identity_perm``."""
+    if n_bags < 0 or bag_len < 0 or n_bags * bag_len >= 2**31:
+        raise ValueError(f"need 0 <= n_bags, 0 <= bag_len and fewer than "
+                         f"2^31 ids, got {n_bags} x {bag_len}")
+    kw = dict(dtype=torch.int32, device=device)
+    seg = torch.arange(n_bags, **kw).repeat_interleave(bag_len)
+    return SegmentLayout(seg, torch.arange(n_bags * bag_len, **kw),
+                         torch.arange(n_bags + 1, **kw) * bag_len, n_bags, {},
+                         identity_perm=True)
 
 
 def _combine(reduce: str, acc: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

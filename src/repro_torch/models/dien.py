@@ -32,7 +32,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.segment_reduce import segment_layout
+from repro_torch.kernels.segment_reduce import contiguous_layout
 from repro_torch.models.common import dense_init, mlp_apply, mlp_params
 from repro_torch.models.embedding import embedding_bag, embedding_lookup
 
@@ -109,12 +109,10 @@ def _pooled_history(params, item_ids, cat_ids, mask):
     """The mask-weighted sum of each row's behavior embeddings: [B, S]
     histories -> [B, 2*embed_dim], one bag per row and table."""
     b, s = item_ids.shape
-    bags = torch.arange(b, dtype=torch.int32,
-                        device=item_ids.device).repeat_interleave(s)
-    layout = segment_layout(bags, b)
+    layout = contiguous_layout(b, s, item_ids.device)
     w = mask.reshape(-1).float()
     return torch.cat([
-        embedding_bag(params[name], ids.reshape(-1), bags, b, weights=w,
+        embedding_bag(params[name], ids.reshape(-1), layout.seg, b, weights=w,
                       layout=layout)
         for name, ids in (("item_emb", item_ids), ("cat_emb", cat_ids))], -1)
 

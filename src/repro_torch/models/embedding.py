@@ -60,7 +60,6 @@ def embedding_bag(
     s = bag_sum(table, ids, bag_ids, weights, n_bags=n_bags, layout=layout)
     if mode == "sum":
         return s
-    ones = torch.ones(ids.shape, device=table.device)
-    c = bag_sum(torch.ones((1, 1), device=table.device), torch.zeros_like(ids),
-                bag_ids, ones, n_bags=n_bags, layout=layout)
+    # each bag's kept lookups, exact in float32 below 2^24
+    c = (layout.offsets[1:] - layout.offsets[:-1]).float()[:, None]
     return s / torch.clamp(c, min=1.0)

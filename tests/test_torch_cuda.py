@@ -38,6 +38,7 @@ from repro_torch.kernels import (  # noqa: E402
 )
 from repro_torch.kernels.embedding_bag import embedding_bag_ref  # noqa: E402
 from repro_torch.kernels.segment_reduce import (  # noqa: E402
+    contiguous_layout,
     gather_rows,
     segment_layout,
     segment_reduce_ref,
@@ -214,6 +215,83 @@ def test_cuda_embedding_bag_matches_plain(cuda_device, d, flags):
     assert embedding_bag.launches == before + 1
     _same_bits(got, embedding_bag_ref(table, ids, bags, w, n_bags=n_bags,
                                       layout=lay))
+
+
+def _bag_kernel_equals_plain(table, ids, w, lay):
+    """One launch of the bag kernel on the layout's bags, bit for bit
+    against the plain version."""
+    kw = dict(n_bags=lay.num_segments, layout=lay)
+    before = embedding_bag.launches
+    got = embedding_bag(table, ids, lay.seg, w, **kw)
+    assert embedding_bag.launches == before + 1
+    _same_bits(got, embedding_bag_ref(table, ids, lay.seg, w, **kw))
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lookups", [100, 1000, 5000])
+def test_cuda_embedding_bag_one_long_bag(cuda_device, lookups):
+    """One bag of 100 lookups (a retrieval user) and bags longer than a
+    chunk of the kernel, which carry their sums from chunk to chunk."""
+    table, ids, _, w = _on(cuda_device, *bag_lookups(
+        50_000, 18, lookups, 1, seed=lookups, zeros=True))
+    _bag_kernel_equals_plain(table, ids, w,
+                             contiguous_layout(1, lookups, cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 4, 8])
+def test_cuda_embedding_bag_short_bags(cuda_device, d):
+    """4,096 bags of 1-3 lookups at small widths: several bags per warp."""
+    rng = np.random.default_rng(d)
+    sizes = rng.integers(1, 4, 4096)
+    bags = np.repeat(np.arange(4096, dtype=np.int32), sizes)
+    table, ids, _, w = bag_lookups(10_000, d, bags.shape[0], 4096, seed=d,
+                                   zeros=True, infs=True)
+    table, ids, w, bags = _on(cuda_device, table, ids, w, bags)
+    _bag_kernel_equals_plain(table, ids, w, segment_layout(bags, 4096))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [17, 18, 128, 513, 2051])
+def test_cuda_embedding_bag_widths(cuda_device, d):
+    """Odd widths (4-byte pieces), widths past a warp, and one past the
+    kernel's 1,024-column slab; unsorted bags with empty, sentinel and
+    dropped bags."""
+    table, ids, bags, w = _on(cuda_device, *bag_lookups(
+        3000, d, 20_000, 300, seed=d, oob=True, zeros=True, infs=True))
+    _bag_kernel_equals_plain(table, ids, w, segment_layout(bags, 300))
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_masked_contiguous_bags(cuda_device):
+    """DIEN's bags: contiguous rows of 100 lookups, the mask as weights;
+    a zero weight on an infinite row gives NaN, as the reference's."""
+    b, s = 700, 100
+    table, ids, _, _ = bag_lookups(20_000, 18, b * s, b, seed=5, infs=True)
+    rng = np.random.default_rng(5)
+    keep = rng.integers(0, s + 1, b)
+    w = (np.arange(s)[None, :] < keep[:, None]).astype(np.float32).ravel()
+    inf_rows = np.flatnonzero(np.isinf(table).any(1))
+    ids[w == 0] = inf_rows[0]
+    table, ids, w = _on(cuda_device, table, ids, w)
+    got = _bag_kernel_equals_plain(table, ids, w,
+                                   contiguous_layout(b, s, cuda_device))
+    assert bool(torch.isnan(got).any())
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_identity_flag(cuda_device):
+    """The same contiguous bags with the identity flag (perm not read) and
+    without it (perm read) give the same bits."""
+    b, s = 1000, 37
+    table, ids, _, w = _on(cuda_device, *bag_lookups(8000, 18, b * s, b,
+                                                     seed=3, zeros=True))
+    flagged = contiguous_layout(b, s, cuda_device)
+    sorted_ = segment_layout(flagged.seg, b)
+    assert flagged.identity_perm and not sorted_.identity_perm
+    _same_bits(_bag_kernel_equals_plain(table, ids, w, flagged),
+               _bag_kernel_equals_plain(table, ids, w, sorted_))
 
 
 @pytest.mark.cuda

@@ -25,7 +25,11 @@ from repro.models.embedding import embedding_bag as j_bag  # noqa: E402
 from repro.models.embedding import embedding_lookup as j_lookup  # noqa: E402
 from repro_torch.kernels import embedding_bag  # noqa: E402
 from repro_torch.kernels.embedding_bag import embedding_bag_ref  # noqa: E402
-from repro_torch.kernels.segment_reduce import segment_layout  # noqa: E402
+from repro_torch.kernels.segment_reduce import (  # noqa: E402
+    contiguous_layout,
+    segment_layout,
+)
+from repro_torch.models import dien as tdien  # noqa: E402
 from repro_torch.models.embedding import embedding_bag as t_bag  # noqa: E402
 from repro_torch.models.embedding import embedding_lookup  # noqa: E402
 from _torch_inputs import bag_lookups  # noqa: E402
@@ -197,3 +201,43 @@ def test_wrapper_validates_inputs():
                           torch.zeros(0, dtype=torch.int32), torch.zeros(0),
                           n_bags=3)
     assert empty.shape == (3, 4) and not bool(empty.any())
+
+
+@pytest.mark.parametrize("b,s", [(1, 1), (1, 100), (7, 1), (5, 3), (64, 10),
+                                 (0, 4)])
+def test_contiguous_layout_equals_the_sorted_layout(b, s):
+    """DIEN's bags laid out without a sort: field by field the layout that
+    sorting ``arange(b).repeat_interleave(s)`` gives, flagged identity."""
+    got = contiguous_layout(b, s, "cpu")
+    want = segment_layout(
+        torch.arange(b, dtype=torch.int32).repeat_interleave(s), b)
+    for field in ("seg", "perm", "offsets"):
+        g, w = getattr(got, field), getattr(want, field)
+        assert g.dtype == w.dtype == torch.int32
+        assert torch.equal(g, w), field
+    assert got.num_segments == want.num_segments == b
+    assert got.identity_perm and not want.identity_perm
+    assert got.tiles == {} and got.tiles is not want.tiles
+
+
+def test_pooled_history_equals_jax_bags_bit_for_bit():
+    """DIEN's pooled history (two bags per row, the contiguous layout, a
+    ragged mask as weights) equals the JAX package's bag of the same
+    lookups, item then category, bit for bit."""
+    rng = np.random.default_rng(16)
+    b, s, d = 9, 12, 18
+    tables = {name: rng.standard_normal((v, d)).astype(np.float32)
+              for name, v in (("item_emb", 300), ("cat_emb", 20))}
+    items = rng.integers(0, 300, (b, s)).astype(np.int32)
+    cats = rng.integers(0, 20, (b, s)).astype(np.int32)
+    mask = np.arange(s)[None, :] < rng.integers(0, s + 1, b)[:, None]
+    got = tdien._pooled_history(
+        {k: torch.from_numpy(v) for k, v in tables.items()},
+        *_t(items, cats, mask))
+    bags = jnp.asarray(np.repeat(np.arange(b, dtype=np.int32), s))
+    w = jnp.asarray(mask.reshape(-1).astype(np.float32))
+    want = jnp.concatenate([
+        j_bag(jnp.asarray(tables[name]), jnp.asarray(ids.reshape(-1)), bags,
+              b, weights=w)
+        for name, ids in (("item_emb", items), ("cat_emb", cats))], -1)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
