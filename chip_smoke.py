@@ -15,7 +15,11 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    first level). All five semirings, k in {1, 4}, parents tracked and not,
    lanes in {1, 8}, each call with an ``allowed`` cap on one lane and an
    early-exit lane; every output must equal the plain version bit for bit.
-   Prints kernel, plain and library times and the bytes bound per shape;
+   Prints kernel, plain and library times, the bytes bound and the sector
+   floor per shape (``relax_bytes``); then replays the main path's own
+   sweeps call by call (``main_path_sweeps``: the dh and dhb incremental
+   fixpoints, the ks from-scratch fixpoint), each call bit for bit against
+   the plain version and timed, with its active edges, bound and floor;
 3. main path at full size: the port's evolve driver, all five modes, sssp,
    ``--verify`` (every mode equals from-scratch on every snapshot, each
    from-scratch result is a fixpoint), with the launch counters set to 0
@@ -98,6 +102,7 @@ import sys
 import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
+L2_BYTES = 50 * 10**6  # H100 L2 cache
 NODES, EDGES, SNAPSHOTS, CHANGES = 1 << 22, 1 << 24, 8, 75_000
 OTHER_NODES, OTHER_EDGES = 1 << 18, 1 << 20
 STREAM_SEGMENTS, STREAM_EDGES = 1 << 20, 1 << 24
@@ -200,17 +205,126 @@ def mixed_state(sr, n, lanes, rng, device):
             torch.from_numpy(frontier).to(device))
 
 
-def relax_bytes(blocks, lanes: int, active: int, track: bool, n: int) -> int:
-    """Bytes a relax_multi sweep must move: src and dst of every edge of
-    every lane, w of the active edges only, and the lane states (values,
-    frontier, parents when tracked) read once and written once."""
-    edges = sum(b.n_padded * (lanes if b.src.dim() == 2 else 1)
-                for b in blocks)
-    state = lanes * n * (4 + 1 + (4 if track else 0))
-    return 8 * edges + 4 * active + 2 * state
+def relax_work(blocks, frontier, n: int):
+    """(edge slots, active edges, active pairs) of one relax_multi sweep
+    from ``frontier`` [S, N]: the src entries it must read (a stacked
+    block's for every lane), the non-padding edges whose src is on some
+    lane's frontier (whose dst and w it must read), and the (edge, lane)
+    pairs whose src is on that lane's frontier (its candidates)."""
+    edges = active = pairs = 0
+    for src, dst, _ in blocks:
+        real = dst < n
+        if src.dim() == 1:
+            on = frontier[:, src.long()] & real
+            active += int(on.any(0).sum())
+        else:
+            on = frontier.gather(1, src.long()) & real
+            active += int(on.sum())
+        edges += src.numel()
+        pairs += int(on.sum())
+        del on
+    return edges, active, pairs
 
 
-def kernel_phase(device):
+def relax_bytes(blocks, frontier, track: bool, n: int):
+    """(bound bytes, sector-floor bytes, active pairs) of one relax_multi
+    sweep.
+
+    Bound: src of every edge slot, dst and w of the active edges only (an
+    edge whose src is on no frontier needs nothing more), and the lane
+    states (values, frontier, parents when tracked) read once and written
+    once. Sector floor: the bound plus, where the lanes' state is larger
+    than the L2, a 32-byte sector for each candidate's random value
+    gather."""
+    edges, active, pairs = relax_work(blocks, frontier, n)
+    state = frontier.shape[0] * n * (4 + 1 + (4 if track else 0))
+    nbytes = 4 * edges + 8 * active + 2 * state
+    return nbytes, nbytes + (32 * pairs if state > L2_BYTES else 0), pairs
+
+
+def relax_timing(fn, reps: int) -> dict:
+    """Phase 2's timing of one relax call: ms of back-to-back calls."""
+    return dict(ms=cuda_ms(fn, reps))
+
+
+def main_path_sweeps(store, sr, call=None):
+    """Replay the relax_multi calls of three of the main path's fixpoints,
+    one call of k = 1 at a time, until every lane's frontier is empty:
+
+    * ``dh``: Direct-Hop's hop to snapshot 1 (phase 2's dh shape): the
+      seed sweep on its Δ block from the anchor state (the from-scratch
+      fixpoint on the common graph, parents not tracked) with the reached
+      vertices as frontier, then sweeps over the common graph plus the Δ;
+    * ``dhb``: the same for every snapshot at once, one lane each
+      (``lane_bucket`` lanes), over the stacked Δ;
+    * ``ks``: KickStarter's from-scratch fixpoint: a fresh state (source 0)
+      on snapshot 0's block, parents tracked.
+
+    ``call(case, args, kwargs)`` makes each call (default: ``relax_multi``
+    itself) and returns its outputs. Returns per case the final values,
+    parent and frontier, the iterations and f32 work accumulated as the
+    engine accumulates them (``_fixpoint``, then the seed's +1 and work),
+    and the number of calls.
+    """
+    import torch
+    from repro_torch.graph.edgeset import lane_bucket
+    from repro_torch.graph.engine import init_values, run_to_fixpoint
+    from repro_torch.kernels import relax_multi
+    from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR
+
+    if call is None:
+        def call(case, args, kw):
+            return relax_multi(*args, **kw)
+    n = store.num_nodes
+    dev = store.device
+    snaps = store.seq.num_snapshots
+    window = (0, snaps - 1)
+    cg = store.common_graph_view(*window)
+    hops = [(window, (i, i)) for i in range(snaps)]
+    stacked = store.delta_stack(hops, num_lanes=lane_bucket(snaps))
+    seeded = {"dh": (1, store.delta_block(*hops[1])),
+              "dhb": (stacked.src.shape[0], stacked)}
+
+    def fixpoint(case, values, parent, frontier, blocks, track):
+        kw = dict(op=KERNEL_OP_FOR[sr.name], num_nodes=n, k=1,
+                  track_parents=track)
+        it = torch.zeros(values.shape[0], dtype=torch.int32, device=dev)
+        work = torch.zeros(values.shape[0], dtype=torch.float32, device=dev)
+        calls = 0
+        while bool(frontier.any()):
+            values, parent, frontier, sweeps, dw = call(
+                case, (values, parent, frontier, blocks, 1), kw)
+            it, work, calls = it + sweeps, work + dw, calls + 1
+        return dict(values=values, parent=parent, frontier=frontier,
+                    iterations=it, work=work, calls=calls)
+
+    out = {}
+    anchor = run_to_fixpoint(cg, sr, 0, track_parents=False)
+    for case, (lanes, delta) in seeded.items():
+        values = anchor.values.expand(lanes, n).contiguous()
+        parent = anchor.parent.expand(lanes, n).contiguous()
+        kw = dict(op=KERNEL_OP_FOR[sr.name], num_nodes=n, k=1,
+                  track_parents=False)
+        values, parent, frontier, _, seed_work = call(
+            case, (values, parent, values != sr.identity, [tuple(delta)], 1),
+            kw)
+        res = fixpoint(case, values, parent, frontier,
+                       [tuple(b) for b in cg.blocks] + [tuple(delta)], False)
+        res["iterations"] = res["iterations"] + 1
+        res["work"] = res["work"] + seed_work
+        res["calls"] += 1
+        out[case] = res
+    values = init_values(n, sr, 0, device=dev)[None]
+    parent = torch.full((1, n), -1, dtype=torch.int32, device=dev)
+    frontier = torch.zeros((1, n), dtype=torch.bool, device=dev)
+    frontier[0, 0] = True
+    out["ks"] = fixpoint("ks", values, parent, frontier,
+                         [tuple(b) for b in store.snapshot_view(0).blocks],
+                         True)
+    return out
+
+
+def kernel_phase(device, timing=relax_timing):
     """Phase 2: both kernels against their plain versions on the card, on
     the blocks a store of the main path's sequence gives them."""
     import numpy as np
@@ -270,20 +384,22 @@ def kernel_phase(device):
     dst_long = snap.dst.long()
     cand = vals[snap.src.long()] + snap.w
     out = torch.full((n + 1,), float("inf"), device=device)
-    er_ms = cuda_ms(lambda: edge_relax(*args, **kw), 20)
+    er = timing(lambda: edge_relax(*args, **kw), 20)
     er_plain = cuda_ms(lambda: edge_relax_ref(*args, **kw), 5)
     er_lib = cuda_ms(lambda: out.scatter_reduce_(0, dst_long, cand, "amin"),
                      20)
+    # values (16.8 MB) fit the L2: the sector floor is the bound
     er_bytes = 12 * snap.n_padded + 4 * n + 4 * n
     edge_relax_row = dict(
         name="edge_relax", route="cuda",
         source="src/repro_torch/kernels/csrc/relax.cu",
         replaces="src/repro/kernels/edge_relax/edge_relax.py:93",
-        max_abs_err=err, ms=er_ms, plain_ms=er_plain,
+        max_abs_err=err, **er, plain_ms=er_plain,
         bound_ms=er_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        sector_floor_ms=er_bytes / HBM_BYTES_PER_S * 1e3,
         library_ms=er_lib, bit_exact=True)
     print(f"[chip_smoke] edge_relax: 5 semirings bit-exact; kernel "
-          f"{er_ms:.3f} ms, plain {er_plain:.3f} ms, scatter_reduce_ "
+          f"{er['ms']:.3f} ms, plain {er_plain:.3f} ms, scatter_reduce_ "
           f"{er_lib:.3f} ms, bound {edge_relax_row['bound_ms']:.3f} ms",
           flush=True)
 
@@ -333,29 +449,69 @@ def kernel_phase(device):
         values, parent, frontier = mixed_state(sr, n, lanes, rng, device)
         blocks = [tuple(b) for b in blks]
         kw = dict(op="min_plus", num_nodes=n, k=1, track_parents=track)
-        ms = cuda_ms(lambda: relax_multi(values, parent, frontier, blocks,
-                                         None, **kw), 10)
+        t = timing(lambda: relax_multi(values, parent, frontier, blocks,
+                                       None, **kw), 10)
         plain = cuda_ms(lambda: relax_multi_ref(values, parent, frontier,
                                                 blocks, None, **kw), 3)
-        active = int(relax_multi(values, parent, frontier, blocks, None,
-                                 **kw)[4].sum())
-        nbytes = relax_bytes(blks, lanes, active, track, n)
-        timed[label] = dict(ms=ms, plain_ms=plain,
+        nbytes, floor, pairs = relax_bytes(blocks, frontier, track, n)
+        timed[label] = dict(t, plain_ms=plain,
                             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                            sector_floor_ms=floor / HBM_BYTES_PER_S * 1e3,
                             lanes=lanes, track_parents=track,
-                            active_edges=active)
+                            active_edges=pairs)
         print(f"[chip_smoke] relax_multi timed ({label} shape: sssp, k=1, "
-              f"lanes={lanes}, track_parents={track}, {active} active "
-              f"edges): kernel {ms:.3f} ms, plain {plain:.3f} ms, bound "
-              f"{timed[label]['bound_ms']:.3f} ms", flush=True)
+              f"lanes={lanes}, track_parents={track}, {pairs} active "
+              f"edges): kernel {t['ms']:.3f} ms, plain {plain:.3f} ms, bound "
+              f"{timed[label]['bound_ms']:.3f} ms, sector floor "
+              f"{timed[label]['sector_floor_ms']:.3f} ms", flush=True)
+
+    # the main path's own sweeps, replayed call by call: each held bit for
+    # bit against the plain version, timed, with its active edges
+    main_path = {}
+
+    def held_call(case, args, kw):
+        got = relax_multi(*args, **kw)
+        want = relax_multi_ref(*args, **kw)
+        calls = main_path.setdefault(case, [])
+        tag = f"relax_multi[main path {case}, call {len(calls)}]"
+        for part, g, r in zip(("values", "parent", "frontier", "sweeps",
+                               "work"), got, want):
+            same_bits(f"{tag} {part}", g, r)
+        del want
+        t = timing(lambda: relax_multi(*args, **kw), 5)
+        _, _, frontier, blocks, _ = args
+        nbytes, floor, pairs = relax_bytes(blocks, frontier,
+                                           kw["track_parents"], n)
+        calls.append(dict(t, active_edges=pairs,
+                          frontier=int(frontier.sum()),
+                          bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                          sector_floor_ms=floor / HBM_BYTES_PER_S * 1e3))
+        return got
+
+    t0 = time.perf_counter()
+    replay = main_path_sweeps(store, sr, held_call)
+    replayed = {}
+    for case, calls in main_path.items():
+        keys = sorted({key for c in calls for key in c})
+        sums = {key: sum(c.get(key, 0) for c in calls) for key in keys}
+        replayed[case] = dict(sums, calls=len(calls), per_call=calls,
+                              sweeps=int(replay[case]["iterations"].max()))
+        print(f"[chip_smoke] relax_multi main path {case}: {len(calls)} "
+              f"calls bit-exact, kernel {sums['ms']:.3f} ms in all, bound "
+              f"{sums['bound_ms']:.3f} ms, sector floor "
+              f"{sums['sector_floor_ms']:.3f} ms; active edges per call "
+              f"{[c['active_edges'] for c in calls]}", flush=True)
+    print(f"[chip_smoke] relax_multi main-path replay in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
     dh = timed["dh"]
     relax_multi_row = dict(
         name="edge_relax_multi", route="cuda",
         source="src/repro_torch/kernels/csrc/relax.cu",
         replaces="src/repro/kernels/edge_relax_multi/edge_relax_multi.py:131",
         max_abs_err=err, ms=dh["ms"], plain_ms=dh["plain_ms"],
-        bound_ms=dh["bound_ms"], bound_by="bytes", library_ms=None,
-        bit_exact=True, shapes=timed)
+        bound_ms=dh["bound_ms"], bound_by="bytes",
+        sector_floor_ms=dh["sector_floor_ms"], library_ms=None,
+        bit_exact=True, shapes=timed, main_path=replayed)
     return edge_relax_row, relax_multi_row
 
 

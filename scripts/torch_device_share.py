@@ -17,8 +17,9 @@ Builds one evolving sequence and store on the GPU. Then:
    events bracket every call of the fused relax kernel
    (``engine.relax_multi``), and prints the wall seconds, the device
    milliseconds inside the relax kernel calls, their share of the wall
-   time, and the call count — the share the host leaves the card idle is
-   the rest.
+   time, the call count — the share the host leaves the card idle is the
+   rest — and the SHA-256 of the mode's results (``results_sha256``), so
+   that two trees can be shown to agree bit for bit.
 
 The last line is one JSON object with both. Needs a GPU; the profiler's
 own overhead inflates the cold pass's wall seconds somewhat.
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import argparse
 import cProfile
+import hashlib
 import json
 import pathlib
 import pstats
@@ -70,53 +72,45 @@ def host_profile(prof: cProfile.Profile) -> dict:
             "port_cum": [row(*kv) for kv in by_cum[:TOP_PORT]]}
 
 
-def main() -> None:
-    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--nodes", type=int, default=1 << 22)
-    p.add_argument("--edges", type=int, default=1 << 24)
-    p.add_argument("--snapshots", type=int, default=8)
-    p.add_argument("--changes", type=int, default=75_000)
-    p.add_argument("--alg", default="sssp", choices=list(ALL_SEMIRINGS))
-    args = p.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("needs an NVIDIA GPU")
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    _build.load_library()
-    sr = ALL_SEMIRINGS[args.alg]
-    seq = make_evolving_sequence(args.nodes, args.edges, args.snapshots,
-                                 args.changes)
-    store = SnapshotStore(seq, device="cuda")
+def mode_runs(store, sr) -> dict:
+    """The modes in the order ``launch/evolve.py`` runs them, each a
+    function returning its result (the plan DP stores its plan for ws and
+    wsb and returns it)."""
     plan = []
-    modes = {
+
+    def optimal():
+        plan.append(optimal_plan(store))
+        return plan[-1]
+    return {
         "ks": lambda: run_kickstarter_stream(store, sr, 0),
         "dh": lambda: run_direct_hop(store, sr, 0),
         "dhb": lambda: run_direct_hop_batched(store, sr, 0),
-        "plan": lambda: plan.append(optimal_plan(store)),
-        "ws": lambda: run_plan(store, plan[0], sr, 0),
-        "wsb": lambda: run_plan_batched(store, plan[0], sr, 0),
+        "plan": optimal,
+        "ws": lambda: run_plan(store, plan[-1], sr, 0),
+        "wsb": lambda: run_plan_batched(store, plan[-1], sr, 0),
     }
-    cold = {}
-    for name, run in modes.items():  # cold pass, profiled; warms the cache
-        prof = cProfile.Profile()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        prof.enable()
-        run()
-        torch.cuda.synchronize()
-        prof.disable()
-        cold[name] = {"wall_s": time.perf_counter() - t0,
-                      **host_profile(prof)}
-        print(f"[host_profile] {name}: cold wall {cold[name]['wall_s']:.3f} s",
-              flush=True)
-        for kind in ("own", "port_cum"):
-            for r in cold[name][kind]:
-                print(f"[host_profile]   {kind:8s} {r['own_s']:9.3f} own "
-                      f"{r['cum_s']:9.3f} cum {r['calls']:7d} calls  "
-                      f"{r['fn']}", flush=True)
-    del modes["plan"]
 
+
+def results_sha256(out) -> str:
+    """SHA-256 of a mode's per-snapshot values, in snapshot order (two
+    trees agree bit for bit where these agree)."""
+    if isinstance(out, tuple):          # run_kickstarter_stream
+        values = out[0]
+    elif isinstance(out.results, dict):  # run_plan, run_plan_batched
+        values = [out.results[i] for i in sorted(out.results)]
+    else:                               # run_direct_hop(_batched)
+        values = out.results
+    h = hashlib.sha256()
+    for v in values:
+        h.update(v.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def warm_pass(modes: dict) -> dict:
+    """Run each mode (blocks already cached) with CUDA events around every
+    call of the fused relax kernel (``engine.relax_multi``): per mode the
+    wall seconds, the device ms inside those calls, their share of the
+    wall, the call count and the results' SHA-256."""
     events = []
     relax_multi = engine.relax_multi
 
@@ -136,19 +130,63 @@ def main() -> None:
             events.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            run()
+            out = run()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             device_ms = sum(s.elapsed_time(e) for s, e in events)
             rows[name] = {"wall_s": wall, "relax_device_ms": device_ms,
                           "device_share": device_ms / 1e3 / wall,
-                          "relax_calls": len(events)}
+                          "relax_calls": len(events),
+                          "results_sha256": results_sha256(out)}
             print(f"[device_share] {name}: wall {wall:.3f} s, relax kernels "
                   f"{device_ms:.1f} ms on the device "
                   f"({100 * device_ms / 1e3 / wall:.1f}% of wall) in "
-                  f"{len(events)} calls", flush=True)
+                  f"{len(events)} calls; results sha256 "
+                  f"{rows[name]['results_sha256'][:16]}", flush=True)
     finally:
         engine.relax_multi = relax_multi
+    return rows
+
+
+def main() -> None:
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    p.add_argument("--nodes", type=int, default=1 << 22)
+    p.add_argument("--edges", type=int, default=1 << 24)
+    p.add_argument("--snapshots", type=int, default=8)
+    p.add_argument("--changes", type=int, default=75_000)
+    p.add_argument("--alg", default="sssp", choices=list(ALL_SEMIRINGS))
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    _build.load_library()
+    sr = ALL_SEMIRINGS[args.alg]
+    seq = make_evolving_sequence(args.nodes, args.edges, args.snapshots,
+                                 args.changes)
+    store = SnapshotStore(seq, device="cuda")
+    modes = mode_runs(store, sr)
+    cold = {}
+    for name, run in modes.items():  # cold pass, profiled; warms the cache
+        prof = cProfile.Profile()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prof.enable()
+        run()
+        torch.cuda.synchronize()
+        prof.disable()
+        cold[name] = {"wall_s": time.perf_counter() - t0,
+                      **host_profile(prof)}
+        print(f"[host_profile] {name}: cold wall {cold[name]['wall_s']:.3f} s",
+              flush=True)
+        for kind in ("own", "port_cum"):
+            for r in cold[name][kind]:
+                print(f"[host_profile]   {kind:8s} {r['own_s']:9.3f} own "
+                      f"{r['cum_s']:9.3f} cum {r['calls']:7d} calls  "
+                      f"{r['fn']}", flush=True)
+    del modes["plan"]
+    rows = warm_pass(modes)
     print(json.dumps({"card": card, "nodes": args.nodes, "edges": args.edges,
                       "snapshots": args.snapshots, "alg": args.alg,
                       "cold": cold, "modes": rows}))

@@ -36,11 +36,12 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 SIGNATURES = {
     # name: argtypes (restype is c_int: cudaGetLastError() for the runs, a
-    # count for segment_reduce_scratch and segment_reduce_max_width; the
-    # error-string lookup is apart)
-    "relax_multi_run": (_I, _I, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P,
-                        _P, _P, _P, _P, _P, _P, _P, _P),
-    "edge_relax_run": (_I, _I, _P, _P, _P, _P, _LL, _P, _P, _P),
+    # count for segment_reduce_scratch, segment_reduce_max_width and
+    # relax_multi_max_lanes; the error-string lookup is apart)
+    "relax_multi_max_lanes": (),
+    "relax_multi_run": (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+    "edge_relax_run": (_I, _I, _P, _P, _P, _P, _LL, _P, _P),
     "segment_reduce_max_width": (),
     "segment_reduce_scratch": (_I, _I, _I),
     "segment_reduce_tiles": (_I, _I, _I, _P, _P, _P),

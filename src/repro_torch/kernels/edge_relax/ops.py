@@ -5,10 +5,15 @@ a CUDA tensor it launches the hand-written kernel (``csrc/relax.cu``,
 ``edge_relax_run``: fill, scatter, decode); on a CPU tensor it runs the
 plain version (``ref.py``). Any other device raises.
 
-Bound on the card: bytes — each edge is read once (12 bytes) plus a random
-4-byte gather and one 32-bit atomicMin on the destination's word; the
-design keeps the per-vertex best as an order-mapped u32 key so one atomic
-instruction reduces any of the five semirings.
+Bound on the card: bytes — each edge is read once (12 bytes), plus a
+random 4-byte gather (the 16 MB of values at N = 2^22 stay in the L2) and
+a min into the destination's word. It runs ``relax_multi``'s scatter core
+with every real edge active: the per-vertex best is an
+order-mapped u32 key, kept in the output's own words until the decode, so
+one atomic instruction reduces any of the five semirings, and a warp
+merges candidates for equal dst first (``__match_any_sync``, then
+``__reduce_min_sync``), so the in-edges of an R-MAT hub that fall in one
+warp cost one atomicMin instead of one each.
 """
 
 from __future__ import annotations
@@ -58,14 +63,12 @@ def edge_relax(values, src, dst, w, *, op: str, num_nodes: int):
     lib = _build.load_library()
     values, src, dst, w = (t.contiguous() for t in (values, src, dst, w))
     out = torch.empty(num_nodes, dtype=torch.float32, device=values.device)
-    best = torch.empty(num_nodes, dtype=torch.int32, device=values.device)
     with torch.cuda.device(values.device):
         stream = torch.cuda.current_stream(values.device).cuda_stream
         edge_relax.launches += 1
         rc = lib.edge_relax_run(OP_CODES[op], num_nodes, values.data_ptr(),
                                 src.data_ptr(), dst.data_ptr(), w.data_ptr(),
-                                src.shape[0], best.data_ptr(), out.data_ptr(),
-                                stream)
+                                src.shape[0], out.data_ptr(), stream)
     _build.check(lib, rc, "edge_relax")
     return out
 

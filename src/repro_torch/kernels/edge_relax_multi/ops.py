@@ -2,21 +2,29 @@
 
 Replaces ``repro/kernels/edge_relax_multi/edge_relax_multi.py::
 relax_multi_pallas``. On CUDA tensors it launches the hand-written kernel
-sequence of ``csrc/relax.cu`` (``relax_multi_run``: one init, then k rounds
-of one scatter launch per edge block and one finish launch, with no host
-sync inside the chunk); on CPU tensors it runs the plain version
+sequence of ``csrc/relax.cu`` (``relax_multi_run``: one prepare pass, then
+k rounds of one scatter launch per edge block and one finish launch, with
+no host sync inside the chunk); on CPU tensors it runs the plain version
 (``ref.py``). Any other device raises.
 
-Bound on the card: bytes. A sweep reads every edge of every block once
-(12 bytes), gathers frontier and values at random and issues one atomicMin
-per active edge; per lane, values/parent/frontier and the packed
-best/winner words (about 70 MB at N = 2^22) stay in device memory, since
-they fit neither shared memory nor L2. The design skips inactive edges
-before the value gather and reads the best word before the atomic, so a
-sweep's cost follows its active edges.
+Bound on the card: bytes. A sweep must read every edge's src; only edges
+whose src is on some lane's frontier need their dst and w, a value gather
+per lane and a min per (dst, lane); and the lanes' state (about 70 MB per
+lane at N = 2^22, more than the L2) is read and written once. The design
+replaced per-lane scatter launches over clones of the state: a prepare
+pass packs the frontier into a bitmap (one bit per vertex) and, with more
+lanes, a word of lane bits per vertex, so a shared block is read once for
+all lanes and its dst and w only for frontier sources; a warp merges
+equal-dst candidates before the one atomicMin; the finish writes fresh
+outputs, so the caller's tensors are read, never copied or written, and
+``parent`` is not touched unless parents are tracked. A sparse sweep, the
+main path's usual one, then costs little more than the prepare and finish
+passes over the lanes' state and one read of every src.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -66,7 +74,10 @@ def relax_multi(values, parent, frontier, blocks, allowed=None, *, op: str,
     sweep takes the best candidate per dst and the smallest winning src,
     applies the meet, sets the parent where improved and frontier =
     improved. Returns new ``(values, parent, frontier, sweeps [S] int32,
-    work [S] f32)``; the inputs are not modified.
+    work [S] f32)``. The inputs are never modified: on the card the kernel
+    reads them and writes fresh outputs. Without parent tracking the
+    returned ``parent`` equals the caller's; on the card it is the
+    caller's tensor itself, not a copy.
     """
     ops_for(op)
     _check_inputs(values, parent, frontier, blocks, num_nodes, k)
@@ -80,41 +91,63 @@ def relax_multi(values, parent, frontier, blocks, allowed=None, *, op: str,
     lib = _build.load_library()
     dev = values.device
     lanes = values.shape[0]
-    # the kernel updates the state in place: work on contiguous copies
-    values, parent, frontier = (t.clone(memory_format=torch.contiguous_format)
-                                for t in (values, parent, frontier))
-    cap = torch.as_tensor(k if allowed is None else allowed,
-                          dtype=torch.int32, device=dev)
-    cap = cap.expand(lanes).contiguous()
+    if lanes > lib.relax_multi_max_lanes():
+        raise ValueError(f"relax_multi on cuda takes at most "
+                         f"{lib.relax_multi_max_lanes()} lanes, got {lanes}")
+    values, frontier = values.contiguous(), frontier.contiguous()
+    if isinstance(allowed, torch.Tensor):
+        cap = allowed.to(dev, torch.int32).expand(lanes).contiguous()
+    else:
+        cap = torch.full((lanes,), k if allowed is None else allowed,
+                         dtype=torch.int32, device=dev)
     blocks = [tuple(t.contiguous() for t in blk) for blk in blocks]
     nb = len(blocks)
-    # one zeroed int32 scratch: run flags [(k+1), S], sweeps [S], counts [S, nb]
-    scratch = torch.zeros((k + 1) * lanes + lanes + lanes * nb,
-                          dtype=torch.int32, device=dev)
-    flags = scratch[:(k + 1) * lanes]
-    sweeps = scratch[(k + 1) * lanes:(k + 2) * lanes]
-    counts = scratch[(k + 2) * lanes:]
-    work = torch.zeros(lanes, dtype=torch.float32, device=dev)
-    best = torch.empty(lanes * num_nodes,
-                       dtype=torch.int64 if track_parents else torch.int32,
-                       device=dev)
+    # one zeroed int32 scratch: run flags [k+1, S+1] (the last entry of a
+    # row: some frontier bit is set), sweeps [S], counts [S, nb], work [S]
+    # (f32 zeros); and one unset one: the best words [S * N] (int64 when
+    # tracked), the vertex bitmap [ceil(N / 32)] and the lane bits
+    # [ceil(S / 32) * N] (with more than one lane)
+    rows = (k + 1) * (lanes + 1)
+    counts_at = rows + lanes
+    work_at = counts_at + lanes * nb
+    zeroed = torch.zeros(work_at + lanes, dtype=torch.int32, device=dev)
+    bitmap_at = lanes * num_nodes * (2 if track_parents else 1)
+    fbits_at = (bitmap_at + (num_nodes + 31) // 32 + 3) // 4 * 4  # 16 B
+    fbits_len = (lanes + 31) // 32 * num_nodes if lanes > 1 else 0
+    unset = torch.empty(fbits_at + fbits_len, dtype=torch.int32, device=dev)
+    values_out = torch.empty_like(values)
+    frontier_out = torch.empty_like(frontier)
+    if track_parents:
+        parent = parent.contiguous()
+        parent_out = torch.empty_like(parent)
+    else:
+        parent_out = None
     srcs = _build.void_ptrs([b[0].data_ptr() for b in blocks])
     dsts = _build.void_ptrs([b[1].data_ptr() for b in blocks])
     ws = _build.void_ptrs([b[2].data_ptr() for b in blocks])
     lens = _build.longlongs([b[0].shape[-1] for b in blocks])
     strides = _build.longlongs([b[0].shape[-1] if b[0].dim() == 2 else 0
                                 for b in blocks])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    guard = (contextlib.nullcontext()
+             if dev.index == torch.cuda.current_device()
+             else torch.cuda.device(dev))
+    with guard:
         relax_multi.launches += 1
         rc = lib.relax_multi_run(
             OP_CODES[op], int(track_parents), lanes, num_nodes, k,
-            values.data_ptr(), parent.data_ptr(), frontier.data_ptr(), nb,
-            srcs, dsts, ws, lens, strides, cap.data_ptr(), flags.data_ptr(),
-            sweeps.data_ptr(), work.data_ptr(), best.data_ptr(),
-            counts.data_ptr(), stream)
+            values.data_ptr(), parent.data_ptr() if track_parents else None,
+            frontier.data_ptr(), values_out.data_ptr(),
+            parent_out.data_ptr() if track_parents else None,
+            frontier_out.data_ptr(), nb, srcs, dsts, ws, lens, strides,
+            cap.data_ptr(), zeroed[:rows].data_ptr(),
+            zeroed[rows:counts_at].data_ptr(), zeroed[work_at:].data_ptr(),
+            unset.data_ptr(), unset[bitmap_at:].data_ptr(),
+            unset[fbits_at:].data_ptr() if fbits_len else None,
+            zeroed[counts_at:work_at].data_ptr(), stream)
     _build.check(lib, rc, "relax_multi")
-    return values, parent, frontier, sweeps, work
+    return (values_out, parent_out if track_parents else parent, frontier_out,
+            zeroed[rows:counts_at], zeroed[work_at:].view(torch.float32))
 
 
 relax_multi.launches = 0

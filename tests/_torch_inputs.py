@@ -128,3 +128,22 @@ def index_case(case, d, seed, *, small=False):
                          (-np.inf, 0.01), (np.nan, 0.002)):
         data[rng.random((e, d)) < share] = np.float32(value)
     return data, seg.astype(np.int32), n
+
+
+def skewed_edges(n, e, seed, *, sort=True, pad=0):
+    """R-MAT-like edges: dst drawn with weight ``rank^-0.65`` over a seeded
+    permutation of the vertices (a few hubs take many in-edges, as the
+    evolve path's R-MAT graphs do), src uniform; stably sorted by dst as
+    ``make_block`` sorts, unless ``sort`` is False; ``pad`` padding edges
+    (dst == n, src 0) at the end."""
+    rng = np.random.default_rng(seed + 401)
+    weight = np.arange(1, n + 1, dtype=np.float64) ** -0.65
+    dst = rng.permutation(n)[rng.choice(n, e, p=weight / weight.sum())]
+    src = rng.integers(0, n, e)
+    if sort:
+        order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
+    w = (rng.random(e) * 0.999 + 1e-3).astype(np.float32)
+    return (np.concatenate([src, np.zeros(pad)]).astype(np.int32),
+            np.concatenate([dst, np.full(pad, n)]).astype(np.int32),
+            np.concatenate([w, np.zeros(pad, np.float32)]))

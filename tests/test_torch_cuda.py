@@ -26,6 +26,7 @@ from _torch_inputs import (  # noqa: E402
     edges,
     index_case,
     messages,
+    skewed_edges,
     state,
     values,
 )
@@ -96,6 +97,142 @@ def test_cuda_relax_multi_matches_plain(cuda_device, name, k, track):
     want = relax_multi_ref(*st, [shared, stacked], allowed, **kw)
     for g, r in zip(got, want):
         assert torch.equal(g, r)
+
+
+def _stacked(lanes, n, e, seed, *, sort=False, pad=0, padding_lanes=()):
+    """A stacked [lanes, e + pad] block; the lanes in ``padding_lanes`` are
+    all padding (dst == n), as a masked lane of a lane bucket is."""
+    rows = [(skewed_edges if sort else edges)(n, e, seed + i, pad=pad)
+            for i in range(lanes)]
+    src, dst, w = (np.stack(a) for a in zip(*rows))
+    for lane in padding_lanes:
+        src[lane], dst[lane], w[lane] = 0, n, 0.0
+    return src, dst, w
+
+
+def _hub(n, e, seed, *, sort):
+    """A hub: vertex 7 takes 10^5 in-edges from distinct sources (1,000
+    on), all of whose candidates are equal (their values and weights are),
+    among ``e`` skewed edges; with ``sort`` every edge is dst-sorted."""
+    src, dst, w = skewed_edges(n, e, seed, sort=False)
+    hub_src = np.arange(1000, 101_000, dtype=np.int32)
+    src = np.concatenate([src, hub_src])
+    dst = np.concatenate([dst, np.full(hub_src.size, 7, np.int32)])
+    w = np.concatenate([w, np.full(hub_src.size, 0.5, np.float32)])
+    order = (np.argsort(dst, kind="stable") if sort
+             else np.random.default_rng(seed).permutation(dst.size))
+    return src[order], dst[order], w[order]
+
+
+def _relax_case(case, name):
+    """(state, blocks, allowed, k) of one ``test_cuda_relax_multi_design``
+    case (see there), as numpy."""
+    n, lanes, k = 3000, 8, 3
+    if case in ("lanes33", "lanes40"):
+        lanes = int(case[5:])
+        blocks = [edges(n, 20_000, 5), _stacked(lanes, n, 300, 50, pad=20)]
+    elif case in ("hub-sorted", "hub-unsorted"):
+        n, lanes, k = 120_000, 2, 2
+        blocks = [_hub(n, 50_000, 6, sort=case == "hub-sorted")]
+    elif case in ("sorted", "unsorted"):
+        blocks = [skewed_edges(n, 30_000, 7, sort=case == "sorted", pad=64),
+                  _stacked(lanes, n, 500, 70, sort=case == "sorted", pad=8)]
+    elif case == "stacked-only":
+        blocks = [_stacked(lanes, n, 4000, 80, sort=True, pad=16,
+                           padding_lanes=(6, 7))]
+    elif case == "shared+2stacked":
+        blocks = [skewed_edges(n, 20_000, 9), _stacked(lanes, n, 700, 90),
+                  _stacked(lanes, n, 300, 100, sort=True, pad=4)]
+    elif case == "all-padding":
+        pad = (np.zeros(4096, np.int32), np.full(4096, n, np.int32),
+               np.zeros(4096, np.float32))
+        blocks = [pad, _stacked(lanes, n, 500, 110, padding_lanes=(3,)),
+                  tuple(np.stack([a] * lanes) for a in pad)]
+    else:
+        raise ValueError(case)
+    vals, parent, fro = state(name, n, 11, lanes)
+    if case.startswith("hub"):
+        vals[:, 1000:101_000] = np.float32(
+            {"viterbi": 0.75, "sswp": 0.75}.get(name, 1.0))
+        fro[:, 1000:101_000] = True
+    allowed = np.full(lanes, k, np.int32)
+    allowed[1] = 0                       # a lane allowed nothing
+    allowed[-1] = 1                      # a capped lane
+    return (vals, parent, fro), blocks, allowed, k
+
+
+RELAX_DESIGN_CASES = ("lanes33", "lanes40", "hub-sorted", "hub-unsorted",
+                      "sorted", "unsorted", "stacked-only", "shared+2stacked",
+                      "all-padding")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("track", [True, False])
+@pytest.mark.parametrize("name", SEMIRINGS)
+@pytest.mark.parametrize("case", RELAX_DESIGN_CASES)
+def test_cuda_relax_multi_design(cuda_device, case, name, track):
+    """What the packed frontier, the warp merge and the fresh outputs could
+    get wrong, bit for bit against the plain version: 33 and 40 lanes (two
+    groups of lane bits), a hub of 10^5 equal candidates (the smallest src
+    wins), dst-sorted and unsorted blocks, stacked blocks only, shared plus
+    two stacked groups, all-padding blocks and lanes, a lane allowed 0 and
+    a capped one; and the inputs are unmodified after the call."""
+    st, blocks, allowed, k = _relax_case(case, name)
+    st = _on(cuda_device, *st)
+    blocks = [_on(cuda_device, *b) for b in blocks]
+    allowed = _on(cuda_device, allowed)[0]
+    before = [t.clone() for t in (*st, allowed)] + [
+        t.clone() for b in blocks for t in b]
+    kw = dict(op=KERNEL_OP_FOR[name], num_nodes=st[0].shape[1], k=k,
+              track_parents=track)
+    got = relax_multi(*st, blocks, allowed, **kw)
+    torch.cuda.synchronize()
+    after = [*st, allowed] + [t for b in blocks for t in b]
+    for b, a in zip(before, after):
+        assert torch.equal(b, a), "an input was modified"
+    want = relax_multi_ref(*st, blocks, allowed, **kw)
+    for part, g, r in zip(("values", "parent", "frontier", "sweeps", "work"),
+                          got, want):
+        assert g.dtype == r.dtype and g.shape == r.shape, part
+        if g.dtype == torch.float32:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(g, r), part
+    if case.startswith("hub") and track:
+        # lane 1 runs one sweep: the hub's equal candidates win, src 1000
+        assert int(got[1][1, 7]) == 1000
+
+
+@pytest.mark.cuda
+def test_cuda_relax_multi_lane_limit(cuda_device):
+    """The most lanes the kernel takes run bit for bit; one more raises
+    ValueError naming the limit."""
+    from repro_torch.kernels import _build
+    most = _build.load_library().relax_multi_max_lanes()
+    src, dst, w = _on(cuda_device, *edges(5, 12, 3))
+    for lanes in (most, most + 1):
+        st = _on(cuda_device, *state("sssp", 5, 3, lanes))
+        kw = dict(op="min_plus", num_nodes=5, k=2)
+        if lanes > most:
+            with pytest.raises(ValueError, match=f"at most {most} lanes"):
+                relax_multi(*st, [(src, dst, w)], **kw)
+            continue
+        for g, r in zip(relax_multi(*st, [(src, dst, w)], **kw),
+                        relax_multi_ref(*st, [(src, dst, w)], **kw)):
+            assert torch.equal(g, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sort", [True, False])
+@pytest.mark.parametrize("name", SEMIRINGS)
+def test_cuda_edge_relax_skewed(cuda_device, name, sort):
+    """The warp merge on R-MAT-like hubs, dst-sorted and not."""
+    n = 5000
+    args = _on(cuda_device, values(name, n, 2),
+               *skewed_edges(n, 200_000, 3, sort=sort, pad=100))
+    op = KERNEL_OP_FOR[name]
+    got = edge_relax(*args, op=op, num_nodes=n)
+    want = edge_relax_ref(*args, op=op, num_nodes=n)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def _same_bits(got, want):
