@@ -20,12 +20,21 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    sweeps call by call (``main_path_sweeps``: the dh and dhb incremental
    fixpoints, the ks from-scratch fixpoint), each call bit for bit against
    the plain version and timed, with its active edges, bound and floor;
+   the replay also covers the window path: the batched slide's launch
+   (5 width-4 windows on 8 lanes, 3 of them masked) and the stream's
+   anchor hop T(0, 7) -> T(2, 7);
 3. main path at full size: the port's evolve driver, all five modes, sssp,
-   ``--verify`` (every mode equals from-scratch on every snapshot, each
-   from-scratch result is a fixpoint), with the launch counters set to 0
-   just before and read just after;
-4. the other four semirings through all five modes with ``--verify`` at
-   2^18 vertices and 2^20 edges;
+   and the window section (``--window 4 --window-batch --stream
+   --campaign-width 2``: sequential and batched slides, a stream of 3
+   campaigns, the cold campaigns), ``--verify`` (every mode equals
+   from-scratch on every snapshot, each from-scratch result is a
+   fixpoint, every window equals its from-scratch fixpoint, the batched
+   slide the sequential one and the stream the cold campaigns bit for
+   bit), with the launch counters set to 0 just before and read just
+   after; the window section's own launches are counted by evolve;
+4. the other four semirings through all five modes and the window
+   section (width 3, ``--campaign-width auto``, ``--fused-k 4``) with
+   ``--verify`` at 2^18 vertices and 2^20 edges;
 5. segment_reduce vs plain, on the card, bit for bit (sums included), on
    every index array and width that phase 6's runs give it: gcn-cora/
    ogb_products by dst and by src at D in {1, 16, 47} (degrees, messages,
@@ -104,6 +113,8 @@ import time
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
 L2_BYTES = 50 * 10**6  # H100 L2 cache
 NODES, EDGES, SNAPSHOTS, CHANGES = 1 << 22, 1 << 24, 8, 75_000
+# phase 3's window section: width-4 windows, streamed in campaigns of 2
+WINDOW, CAMPAIGN_WIDTH = 4, 2
 OTHER_NODES, OTHER_EDGES = 1 << 18, 1 << 20
 STREAM_SEGMENTS, STREAM_EDGES = 1 << 20, 1 << 24
 # Phase 5's skewed stream: STREAM_EDGES ids into STREAM_SEGMENTS segments
@@ -257,6 +268,12 @@ def main_path_sweeps(store, sr, call=None):
       vertices as frontier, then sweeps over the common graph plus the Δ;
     * ``dhb``: the same for every snapshot at once, one lane each
       (``lane_bucket`` lanes), over the stacked Δ;
+    * ``slide``: the batched window slide's launch (phase 3's width-4
+      windows, ``lane_bucket`` lanes, the padding lanes masked): the
+      seed sweep on the stacked slide Δ from the anchor state, then
+      sweeps over the common graph plus the stacked Δ;
+    * ``anchor_hop``: the stream's hop from the first campaign's anchor
+      (the common graph) to the second's, T(2, last), one lane;
     * ``ks``: KickStarter's from-scratch fixpoint: a fresh state (source 0)
       on snapshot 0's block, parents tracked.
 
@@ -267,6 +284,7 @@ def main_path_sweeps(store, sr, call=None):
     and the number of calls.
     """
     import torch
+    from repro_torch.core import slide_windows
     from repro_torch.graph.edgeset import lane_bucket
     from repro_torch.graph.engine import init_values, run_to_fixpoint
     from repro_torch.kernels import relax_multi
@@ -282,8 +300,14 @@ def main_path_sweeps(store, sr, call=None):
     cg = store.common_graph_view(*window)
     hops = [(window, (i, i)) for i in range(snaps)]
     stacked = store.delta_stack(hops, num_lanes=lane_bucket(snaps))
+    windows = slide_windows(snaps, min(WINDOW, snaps))
+    slide = store.slide_stack(windows, window,
+                              num_lanes=lane_bucket(len(windows)))
     seeded = {"dh": (1, store.delta_block(*hops[1])),
-              "dhb": (stacked.src.shape[0], stacked)}
+              "dhb": (stacked.src.shape[0], stacked),
+              "slide": (slide.src.shape[0], slide),
+              "anchor_hop": (1, store.delta_block(
+                  window, (min(CAMPAIGN_WIDTH, snaps - 1), snaps - 1)))}
 
     def fixpoint(case, values, parent, frontier, blocks, track):
         kw = dict(op=KERNEL_OP_FOR[sr.name], num_nodes=n, k=1,
@@ -322,6 +346,23 @@ def main_path_sweeps(store, sr, call=None):
                          [tuple(b) for b in store.snapshot_view(0).blocks],
                          True)
     return out
+
+
+def check_windows(tag: str, win: dict, n: int) -> None:
+    """fail() unless every window result of evolve's window section
+    (``summary["windows"]``) is a CUDA [n] tensor without NaN and the
+    section launched relax_multi."""
+    import torch
+    runs = [win["slide"], win["batch"], win["stream"], *(win["cold"] or [])]
+    for run in filter(None, runs):
+        for wnd, vals in run.results.items():
+            if vals.shape != (n,) or vals.device.type != "cuda":
+                fail(f"{tag} window {wnd}: result {tuple(vals.shape)} on "
+                     f"{vals.device}")
+            if bool(torch.isnan(vals).any()):
+                fail(f"{tag} window {wnd}: NaN in result")
+    if win["launches"]["edge_relax_multi"] <= 0:
+        fail(f"{tag}: the window section never launched relax_multi")
 
 
 def kernel_phase(device, timing=relax_timing):
@@ -1345,7 +1386,9 @@ def main() -> None:
     # 3. main path, counters zeroed just before and read just after
     argv = ["--nodes", str(NODES), "--edges", str(EDGES), "--snapshots",
             str(SNAPSHOTS), "--changes", str(CHANGES), "--alg", "sssp",
-            "--verify", "--device", "cuda"]
+            "--verify", "--device", "cuda", "--window", str(WINDOW),
+            "--window-batch", "--stream", "--campaign-width",
+            str(CAMPAIGN_WIDTH)]
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     edge_relax.launches = 0
@@ -1366,12 +1409,32 @@ def main() -> None:
     for name, count in launches.items():
         if count <= 0:
             fail(f"main path never launched the {name} kernel")
+    win = summary["windows"]
+    check_windows("phase 3", win, NODES)
     walls = {m: round(s, 3) for m, s in summary["wall_s"].items()}
     print(f"[chip_smoke] phase 3: main path {argv} verified in {wall:.1f}s; "
           f"per-mode wall s {walls}; launches {launches}; peak device "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    del summary
+    stm = win["stream"]
+    windows_row = dict(
+        wall_s=win["wall_s"], launches=win["launches"],
+        anchors=stm.anchors, anchor_events=stm.anchor_events,
+        added_edges={"slide": win["slide"].added_edges,
+                     "stream": stm.added_edges,
+                     "anchor_hops": stm.anchor_delta_edges},
+        stable_milli={"slide": win["slide"].stable_milli,
+                      "batch": win["batch"].stable_milli,
+                      "stream": stm.stable_milli})
+    window_walls = {k: round(v, 3) for k, v in win["wall_s"].items()}
+    print(f"[chip_smoke] phase 3 windows: {len(win['windows'])} of width "
+          f"{WINDOW}, wall s {window_walls}; stream "
+          f"{len(stm.campaigns)} campaigns anchored at {stm.anchors}: "
+          f"{stm.anchor_rebuilds} rebuilds + {stm.anchor_hops} hops + "
+          f"{stm.anchor_hits} hits; Δ-edges {windows_row['added_edges']}; "
+          f"stable ‰ {windows_row['stable_milli']}; window-section "
+          f"launches {win['launches']}", flush=True)
+    del summary, win, stm
     torch.cuda.empty_cache()
 
     # 4. the other four semirings at a smaller size
@@ -1380,12 +1443,19 @@ def main() -> None:
         other = evolve.main(["--nodes", str(OTHER_NODES), "--edges",
                              str(OTHER_EDGES), "--snapshots", str(SNAPSHOTS),
                              "--changes", str(CHANGES), "--alg", alg,
-                             "--verify", "--device", "cuda"])
+                             "--verify", "--device", "cuda", "--window", "3",
+                             "--window-batch", "--stream",
+                             "--campaign-width", "auto", "--fused-k", "4"])
         if not other["verified"]:
             fail(f"{alg} did not verify")
+        check_windows(f"phase 4 {alg}", other["windows"], OTHER_NODES)
+        if other["windows"]["stream"].plan is None:
+            fail(f"phase 4 {alg}: the stream made no campaign plan")
     print(f"[chip_smoke] phase 4: bfs/sswp/ssnp/viterbi verified at "
-          f"{OTHER_NODES} vertices, {OTHER_EDGES} edges in "
+          f"{OTHER_NODES} vertices, {OTHER_EDGES} edges, windows of width 3 "
+          f"(auto campaigns, fused k 4), in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
+    del other
 
     # 5. segment_reduce vs plain
     t0 = time.perf_counter()
@@ -1454,6 +1524,7 @@ def main() -> None:
     # 11. records
     edge_relax_row["launches"] = launches["edge_relax"]
     relax_multi_row["launches"] = launches["edge_relax_multi"]
+    relax_multi_row["windows"] = windows_row
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [edge_relax_row, relax_multi_row,
                                   segment_row, bag_row]}))

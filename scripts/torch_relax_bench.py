@@ -10,14 +10,18 @@ checkout's ``chip_smoke.kernel_phase``: every tree meets the same cases,
 each held bit for bit against that tree's plain version: ``edge_relax`` on
 the snapshot block, ``relax_multi`` at the ks, dh and dhb shapes, and the
 main path's own sweeps (``chip_smoke.main_path_sweeps``: the dh and dhb
-incremental fixpoints and the ks from-scratch fixpoint, one call at a
-time). Each call is timed as back-to-back ms, device µs (calls queued
+incremental fixpoints, the batched window slide's launch, the stream's
+anchor hop and the ks from-scratch fixpoint, one call at a time). Each call is timed as back-to-back ms, device µs (calls queued
 behind a sleep, so the host never holds the card back) and the wrapper's
 host µs per call, beside the bound and the sector floor. With ``--evolve``
 each tree then runs ``scripts/torch_device_share.py``'s warm pass at full
 size (after one cold pass that builds every block): per mode the wall
 seconds, the relax calls' device ms and count, and the SHA-256 of the
-mode's results, to show that two trees agree bit for bit. Prints a table
+mode's results, to show that two trees agree bit for bit. Beside the five
+modes it runs ``chip_smoke.py`` phase 3's window section: the sequential
+slide (``slide``), the batched slide (``slide_batch``) and the stream of
+campaigns (``stream``, its anchor states dropped first so each run pays
+its rebuild and hops). Prints a table
 per case and tree and writes every number to
 ``chiprun_out/relax_bench.json``. Needs one card.
 """
@@ -80,12 +84,29 @@ def evolve_pass() -> dict:
 
     import chip_smoke
     import torch_device_share as share
-    from repro_torch.core import SnapshotStore
+    from repro_torch.core import (
+        SnapshotStore,
+        run_window_slide,
+        run_window_slide_batched,
+        run_window_stream_batched,
+    )
     from repro_torch.graph import ALL_SEMIRINGS, make_evolving_sequence
     seq = make_evolving_sequence(chip_smoke.NODES, chip_smoke.EDGES,
                                  chip_smoke.SNAPSHOTS, chip_smoke.CHANGES)
     store = SnapshotStore(seq, device="cuda")
-    modes = share.mode_runs(store, ALL_SEMIRINGS["sssp"])
+    sr = ALL_SEMIRINGS["sssp"]
+    modes = share.mode_runs(store, sr)
+
+    def stream():
+        store.release(("AS",))
+        return run_window_stream_batched(
+            store, sr, 0, chip_smoke.WINDOW,
+            campaign_width=chip_smoke.CAMPAIGN_WIDTH)
+    modes.update(
+        slide=lambda: run_window_slide(store, sr, 0, chip_smoke.WINDOW),
+        slide_batch=lambda: run_window_slide_batched(store, sr, 0,
+                                                     chip_smoke.WINDOW),
+        stream=stream)
     cold = {}
     for name, run in modes.items():
         torch.cuda.synchronize()

@@ -5,6 +5,7 @@ Layers:
   kickstarter  the streaming baseline (deletions + trimming) we compare to
   directhop    CommonGraph Direct-Hop schedule (deletion-free, star plan)
   trigrid      Triangular Grid + work-sharing plans (DP-optimal / bisection)
+  window       sliding-window executors and streaming campaigns
 """
 
 from repro_torch.core.snapshots import SnapshotStore
@@ -26,8 +27,38 @@ from repro_torch.core.trigrid import (
     run_plan,
     run_plan_batched,
 )
+from repro_torch.core.window import (
+    AnchorChain,
+    CampaignPlan,
+    WindowSlideRun,
+    WindowStream,
+    WindowStreamRun,
+    campaign_volume,
+    optimal_campaigns,
+    run_window_slide,
+    run_window_slide_batched,
+    run_window_stream_batched,
+    select_chain,
+    slide_windows,
+    stream_campaigns,
+    window_anchor,
+)
 
 __all__ = [
+    "AnchorChain",
+    "CampaignPlan",
+    "WindowSlideRun",
+    "WindowStream",
+    "WindowStreamRun",
+    "campaign_volume",
+    "optimal_campaigns",
+    "run_window_slide",
+    "run_window_slide_batched",
+    "run_window_stream_batched",
+    "select_chain",
+    "slide_windows",
+    "stream_campaigns",
+    "window_anchor",
     "SnapshotStore",
     "hop_added_edges",
     "StreamStats",

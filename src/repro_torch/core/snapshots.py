@@ -263,9 +263,16 @@ class SnapshotStore:
         return EdgeView(blocks, self.num_nodes)
 
     def delta_block(self, parent: tuple[int, int], child: tuple[int, int]) -> EdgeBlock:
-        """The addition batch of one nested-window hop (tag family "D")."""
-        return self.block_for_keys(self.delta_keys(parent, child),
-                                   ("D", parent, child))
+        """The addition batch of one nested-window hop (tag family "D").
+
+        The tag needs no keys, so a cached hop is returned before
+        :meth:`delta_keys` would run its set difference.
+        """
+        tag = ("D", parent, child)
+        blk = self._cache_get(tag)
+        if blk is not None:
+            return blk
+        return self.block_for_keys(self.delta_keys(parent, child), tag)
 
     def delta_stack(
         self, hops: "list[tuple[tuple[int, int], tuple[int, int]]]",
@@ -314,3 +321,32 @@ class SnapshotStore:
     def deletion_keys(self, t: int) -> np.ndarray:
         """Keys deleted at transition t → t+1 (KickStarter baseline input)."""
         return self.seq.deletions[t]
+
+    # -- sliding windows (core/window.py) --------------------------------------
+    #
+    # Sliding [i..j] → [i+1..j+1] is NOT deletion-free from the old apex:
+    # T(i,j) ⊄ T(i+1,j+1) in general. The sound anchor is any SUPER-window
+    # apex, from which every window apex is reachable by additions only.
+    # ``slide_block`` is delta_block with the anchor made explicit, so all
+    # nesting validation and caching carry over. The default anchor is the
+    # global window: the port's store retires no snapshots, so its live
+    # range starts at 0.
+
+    def slide_block(self, new_window: tuple[int, int],
+                    anchor: tuple[int, int] | None = None) -> EdgeBlock:
+        """Addition batch hopping the anchor apex state to ``new_window``'s
+        apex (``anchor`` defaults to the global window)."""
+        if anchor is None:
+            anchor = (0, self.seq.num_snapshots - 1)
+        return self.delta_block(anchor, new_window)
+
+    def slide_stack(self, windows: "list[tuple[int, int]]",
+                    anchor: tuple[int, int] | None = None,
+                    num_lanes: int | None = None) -> EdgeBlock:
+        """Stacked slide deltas: one lane per window, all hopping from
+        ``anchor`` (default: the global window); ``num_lanes`` buckets the
+        lane axis exactly as in :meth:`delta_stack`."""
+        if anchor is None:
+            anchor = (0, self.seq.num_snapshots - 1)
+        return self.delta_stack([(anchor, w) for w in windows],
+                                num_lanes=num_lanes)

@@ -1,7 +1,9 @@
 """Seeded numpy inputs shared by the port's kernel tests (no jax, so the
-CUDA legs can run on a machine without it)."""
+CUDA legs can run on a machine without it), and a fixture that runs a test
+module on one PyTorch thread."""
 
 import numpy as np
+import pytest
 
 # numpy copies of the semiring identities and source values
 IDENTITY = {"bfs": np.inf, "sssp": np.inf, "sswp": -np.inf, "ssnp": np.inf,
@@ -147,3 +149,15 @@ def skewed_edges(n, e, seed, *, sort=True, pad=0):
     return (np.concatenate([src, np.zeros(pad)]).astype(np.int32),
             np.concatenate([dst, np.full(pad, n)]).astype(np.int32),
             np.concatenate([w, np.zeros(pad, np.float32)]))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run the importing test module on one intra-op thread: its small
+    graphs gain nothing from more, and the suite's parallel workers would
+    oversubscribe the cores (a 10^5-edge run took 30x longer so)."""
+    import torch
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

@@ -1,7 +1,8 @@
 """The port's CUDA kernels held against their plain PyTorch versions on a
 card, bit for bit: the relax kernels (min/max reductions are order-free),
 segment_reduce and embedding_bag (sums too: kernel and plain version both
-add each segment or bag in edge or lookup order). No tolerance.
+add each segment or bag in edge or lookup order), and the window
+executors on the card against the same runs on the CPU. No tolerance.
 
 Imports neither jax nor repro, so it runs on a GPU machine without them:
 
@@ -30,6 +31,13 @@ from _torch_inputs import (  # noqa: E402
     state,
     values,
 )
+from repro_torch.core import (  # noqa: E402
+    SnapshotStore,
+    run_window_slide_batched,
+    run_window_stream_batched,
+)
+from repro_torch.core.window import _stream_qkey  # noqa: E402
+from repro_torch.graph import make_evolving_sequence  # noqa: E402
 from repro_torch.graph.semiring import ALL_SEMIRINGS  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     edge_relax,
@@ -461,3 +469,46 @@ def test_cuda_dien_train_driver_decreases_loss(cuda_device):
     assert losses[-1] < losses[0]
     assert embedding_bag.launches > before[0]
     assert segment_reduce.launches > before[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused_k", [1, 4])
+@pytest.mark.parametrize("name", SEMIRINGS)
+def test_cuda_window_slide_and_stream_match_cpu(cuda_device, name, fused_k):
+    """The batched slide (5 windows on 8 lanes, 3 masked) and a stream (2
+    campaigns of 3 windows on 4 lanes, one masked; 1 rebuild + 1 anchor
+    hop) on the card equal the CPU's runs bit for bit, parents tracked, at
+    k = 1 and 4; only the card launches relax_multi."""
+    seq = make_evolving_sequence(3000, 24_000, 8, 500, seed=3)
+    sr = ALL_SEMIRINGS[name]
+    runs = []
+    for dev in ("cpu", cuda_device):
+        store = SnapshotStore(seq, granule=512, device=dev)
+        before = relax_multi.launches
+        slide = run_window_slide_batched(store, sr, 0, 4, track_parents=True,
+                                         fused_k=fused_k)
+        stream = run_window_stream_batched(store, sr, 0, 3, campaign_width=3,
+                                           track_parents=True,
+                                           fused_k=fused_k)
+        runs.append((store, slide, stream, relax_multi.launches - before))
+    (cpu_store, cpu_slide, cpu_stream, cpu_n), \
+        (card_store, slide, stream, card_n) = runs
+    assert cpu_n == 0 < card_n
+    assert slide.lane_layout == cpu_slide.lane_layout == [(5, 8)]
+    assert stream.lane_layout == [(3, 4), (3, 4)]
+    assert stream.anchor_events == cpu_stream.anchor_events == \
+        ["rebuild", "hop"]
+    for got, want in ((slide, cpu_slide), (stream, cpu_stream)):
+        assert list(got.results) == list(want.results)
+        for wnd, vals in got.results.items():
+            assert vals.is_cuda
+            _same_bits(vals.cpu(), want.results[wnd])
+        assert got.stable_milli == want.stable_milli
+        assert [(h.edge_work, h.sweeps) for h in got.hop_stats] == \
+            [(h.edge_work, h.sweeps) for h in want.hop_stats]
+    qkey = _stream_qkey(sr, 0, 10_000, 1, True)
+    for anchor in stream.anchors:
+        got = card_store.anchor_state_get(qkey, anchor)
+        want = cpu_store.anchor_state_get(qkey, anchor)
+        _same_bits(got.values.cpu(), want.values)
+        assert torch.equal(got.parent.cpu(), want.parent)
