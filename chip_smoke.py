@@ -32,9 +32,34 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    slide the sequential one and the stream the cold campaigns bit for
    bit), with the launch counters set to 0 just before and read just
    after; the window section's own launches are counted by evolve;
+3b. the query service at the main path's full size (``serve --service
+   --clients 6 --seed 0``: a seeded open-loop load of window queries,
+   sssp and bfs from two sources, packed into masked relax_multi launches),
+   the counts set to 0 just before and read just after: every query
+   completes, every client's window equals a solo stream of its spec and
+   a from-scratch fixpoint of its window (each certified by one unmasked
+   edge_relax sweep) bit for bit, the service rebuilds strictly fewer
+   anchors than the solo streams when clients share a query key, and a
+   launch packs lanes of several clients; prints the counts, the turn
+   wall, queries/s and p50/p99. Then ``calibrate`` (sssp, fused k 4) on
+   the same store, counted as its own path: over ``slide_windows(8, 4)``
+   the calibrated plan must cost no more than the raw-count plan priced
+   under the same model;
 4. the other four semirings through all five modes and the window
-   section (width 3, ``--campaign-width auto``, ``--fused-k 4``) with
-   ``--verify`` at 2^18 vertices and 2^20 edges;
+   section (width 3, ``--campaign-width auto`` priced by ``--calibrate``,
+   ``--fused-k 4``) with ``--verify`` at 2^18 vertices and 2^20 edges,
+   then sssp the same way without ``--calibrate`` (the plan priced by raw
+   counts);
+4b. ingestion at 2^18/2^20, counts set to 0 just before and read just
+   after: ``evolve --ingest --calibrate`` (bfs, the window section,
+   ``--verify``: snapshots born from watermark cuts, bit-identical to the
+   sequence), then a live replay with spill backpressure whose cuts feed a
+   ``WindowStream`` and a ``QueryService`` client through
+   ``LiveWindowFeed``s: snapshots and Δ pairs bit-identical to the
+   sequence, live window results equal to the precomputed store's bit for
+   bit, and ``Watermark.compact`` strictly shrinks the stored edges.
+   Ingestion stays at this size: every event is one Python object on the
+   host, as in the reference;
 5. segment_reduce vs plain, on the card, bit for bit (sums included), on
    every index array and width that phase 6's runs give it: gcn-cora/
    ogb_products by dst and by src at D in {1, 16, 47} (degrees, messages,
@@ -116,6 +141,10 @@ NODES, EDGES, SNAPSHOTS, CHANGES = 1 << 22, 1 << 24, 8, 75_000
 # phase 3's window section: width-4 windows, streamed in campaigns of 2
 WINDOW, CAMPAIGN_WIDTH = 4, 2
 OTHER_NODES, OTHER_EDGES = 1 << 18, 1 << 20
+# phase 3b's service load (``serve.generate_load``, seed 0) and phase 4b's
+# spill bound (``benchmarks/ingest.py``'s)
+SERVICE_CLIENTS = 6
+INGEST_MAX_PENDING = 1024
 STREAM_SEGMENTS, STREAM_EDGES = 1 << 20, 1 << 24
 # Phase 5's skewed stream: STREAM_EDGES ids into STREAM_SEGMENTS segments
 # drawn from a Zipf law over ranks (weight r^-0.65). The exponent gives the
@@ -1348,6 +1377,272 @@ def dien_train_phase(device):
     return bag_launches, seg_launches, run
 
 
+def service_phase() -> dict:
+    """Phase 3b: the query service at full width (``serve --service``,
+    ``SERVICE_CLIENTS`` clients over the main path's sequence), the relax
+    counts set to 0 just before and read just after; then its checks (solo
+    streams, from-scratch fixpoints with their one-sweep certificates,
+    rebuilds, packing) and the calibrated planner on the same store."""
+    from repro_torch.core import (
+        calibrate,
+        campaign_volume,
+        optimal_campaigns,
+        run_window_stream_batched,
+        slide_windows,
+    )
+    from repro_torch.graph import EdgeView, run_to_fixpoint
+    from repro_torch.graph.semiring import ALL_SEMIRINGS
+    from repro_torch.kernels import edge_relax, relax_multi
+    from repro_torch.launch import evolve, serve
+
+    argv = ["--service", "--nodes", str(NODES), "--edges", str(EDGES),
+            "--snaps", str(SNAPSHOTS), "--changes", str(CHANGES),
+            "--clients", str(SERVICE_CLIENTS), "--seed", "0", "--device",
+            "cuda"]
+    edge_relax.launches = 0
+    relax_multi.launches = 0
+    t0 = time.perf_counter()
+    service = serve.main(argv)
+    wall = time.perf_counter() - t0
+    launches = {"edge_relax": edge_relax.launches,
+                "edge_relax_multi": relax_multi.launches}
+    m = service.metrics()
+    store = service.store
+    if m.completed != m.admitted or not m.admitted:
+        fail(f"phase 3b: {m.completed} of {m.admitted} queries completed")
+    if launches["edge_relax_multi"] <= 0:
+        fail("phase 3b: the service never launched relax_multi")
+    packed = sum(len(set(r.clients)) > 1 for r in service.launch_log)
+    if not packed:
+        fail("phase 3b: no launch packed lanes of more than one client")
+    counts = dict(
+        admitted=m.admitted, completed=m.completed, turns=m.turns,
+        launches=m.launches, lanes=m.lanes, padded_lanes=m.padded_lanes,
+        occupancy_milli=round(1000 * m.lanes / m.launches),
+        rebuilds=m.anchor_rebuilds, hops=m.anchor_hops, hits=m.anchor_hits,
+        stable_milli=m.stable_fraction_milli, multi_client_launches=packed)
+    timing = dict(wall_s=wall, turn_wall_s=m.wall_s,
+                  queries_per_s=m.queries_per_sec,
+                  p50_ms=m.latency_us(50) / 1e3,
+                  p99_ms=m.latency_us(99) / 1e3)
+    print(f"[chip_smoke] phase 3b: serve {argv} in {wall:.1f}s (sequence "
+          f"and store included); counts {counts}; turn wall "
+          f"{m.wall_s:.3f}s, {m.queries_per_sec:.2f} queries/s, p50 "
+          f"{timing['p50_ms']:.1f} ms, p99 {timing['p99_ms']:.1f} ms; "
+          f"launches {launches}", flush=True)
+
+    # every client's windows against a solo stream of its spec (cold
+    # anchors, the service's pins released first)
+    t0 = time.perf_counter()
+    specs, _ = serve.generate_load(SNAPSHOTS, num_clients=SERVICE_CLIENTS,
+                                   seed=0)
+    clients = {c.name: c for c in service.clients}
+    for client in list(service.clients):
+        service.unregister(client)
+    solo_rebuilds = 0
+    for spec in specs:
+        client = clients[spec["name"]]
+        store.release(("AS",))
+        solo = run_window_stream_batched(
+            store, ALL_SEMIRINGS[spec["alg"]], spec["source"],
+            windows=spec["windows"], campaign_width=spec["campaign_width"])
+        solo_rebuilds += solo.anchor_rebuilds
+        if list(solo.results) != list(client.results):
+            fail(f"phase 3b {spec['name']}: windows {list(client.results)} "
+                 f"!= solo {list(solo.results)}")
+        for wnd, vals in solo.results.items():
+            same_bits(f"phase 3b {spec['name']} {wnd} vs solo",
+                      client.results[wnd], vals)
+    keys = [(s["alg"], s["source"]) for s in specs]
+    shared = len(set(keys)) < len(keys)
+    if shared and not m.anchor_rebuilds < solo_rebuilds:
+        fail(f"phase 3b: {m.anchor_rebuilds} rebuilds, not fewer than the "
+             f"solo streams' {solo_rebuilds}, with a query key shared")
+    if not shared:
+        print("[chip_smoke] phase 3b: the seeded plan shares no query key; "
+              "rebuilds not compared", flush=True)
+    # and a from-scratch fixpoint per distinct (semiring, source, window),
+    # each certified by one unmasked edge_relax sweep
+    checked = {}
+    for spec in specs:
+        sr = ALL_SEMIRINGS[spec["alg"]]
+        for wnd in spec["windows"]:
+            key = (spec["alg"], spec["source"], wnd)
+            if key not in checked:
+                view = EdgeView((store.window_block(*wnd),), store.num_nodes)
+                ref = run_to_fixpoint(view, sr, spec["source"]).values
+                evolve._check_fixpoint(sr, view, ref,
+                                       f"phase 3b from-scratch {key}")
+                checked[key] = ref
+            same_bits(f"phase 3b {spec['name']} {wnd} vs from-scratch",
+                      clients[spec["name"]].results[wnd], checked[key])
+    print(f"[chip_smoke] phase 3b: every window equals its solo stream "
+          f"and a from-scratch fixpoint ({len(checked)} distinct, each a "
+          f"certified fixpoint) bit for bit; rebuilds {m.anchor_rebuilds} "
+          f"vs solo {solo_rebuilds}; {packed} launches packed several "
+          f"clients; checks in {time.perf_counter() - t0:.1f}s", flush=True)
+    del clients, checked
+
+    # the calibrated planner on the same store, counted as a path of its own
+    sr = ALL_SEMIRINGS["sssp"]
+    store.release(("AS",))
+    edge_relax.launches = 0
+    relax_multi.launches = 0
+    t0 = time.perf_counter()
+    model = calibrate(store, sr, 0, stable_milli=m.stable_fraction_milli,
+                      fused_k=4)
+    cal_wall = time.perf_counter() - t0
+    cal_launches = {"edge_relax": edge_relax.launches,
+                    "edge_relax_multi": relax_multi.launches}
+    if cal_launches["edge_relax_multi"] <= 0:
+        fail("phase 3b: calibrate never launched relax_multi")
+    windows = slide_windows(SNAPSHOTS, 4)
+    raw = optimal_campaigns(store, windows)
+    raw_priced = campaign_volume(store, raw.campaigns,
+                                 cost_model=model).total_edges
+    cal = optimal_campaigns(store, windows, cost_model=model)
+    if not cal.total_edges <= raw_priced:
+        fail(f"phase 3b: calibrated plan {cal.total_edges} ns costs more "
+             f"than the raw-count plan {raw_priced} ns")
+    calibration = dict(per_edge_nanos=model.per_edge_nanos,
+                       per_sweep_nanos=model.per_sweep_nanos,
+                       stable_milli=model.stable_milli, wall_s=cal_wall,
+                       launches=cal_launches, raw_widths=raw.widths,
+                       calibrated_widths=cal.widths, raw_priced_ns=raw_priced,
+                       calibrated_ns=cal.total_edges)
+    print(f"[chip_smoke] phase 3b: calibrated {model.per_edge_nanos} "
+          f"ns/edge + {model.per_sweep_nanos} ns/sweep (stable "
+          f"{model.stable_milli}‰) in {cal_wall:.1f}s, launches "
+          f"{cal_launches}; slide_windows({SNAPSHOTS}, 4): calibrated "
+          f"plan {cal.widths} {cal.total_edges} ns <= raw-count plan "
+          f"{raw.widths} {raw_priced} ns", flush=True)
+    return dict(counts=counts, timing=timing, launches=launches,
+                solo_rebuilds=solo_rebuilds, calibration=calibration)
+
+
+def ingest_phase(device) -> dict:
+    """Phase 4b: ingestion at 2^18/2^20, the relax counts set to 0 just
+    before and read just after: ``evolve --ingest --calibrate`` (bfs, the
+    window section, auto campaigns, fused k 4, ``--verify``), then a live
+    leg shaped like ``benchmarks/ingest.py``: a spill-policy replay whose
+    cuts feed a ``WindowStream`` and a ``QueryService`` client through
+    ``LiveWindowFeed``s, then ``Watermark.compact``."""
+    import numpy as np
+    from repro_torch.core import (
+        EdgeLog,
+        IngestMetrics,
+        LiveSequence,
+        LiveWindowFeed,
+        QueryService,
+        SnapshotStore,
+        Watermark,
+        WindowStream,
+        events_from_sequence,
+        replay_events,
+        run_window_slide_batched,
+        run_window_stream_batched,
+    )
+    from repro_torch.graph import make_evolving_sequence
+    from repro_torch.graph.semiring import ALL_SEMIRINGS
+    from repro_torch.kernels import edge_relax, relax_multi
+    from repro_torch.launch import evolve
+
+    edge_relax.launches = 0
+    relax_multi.launches = 0
+    t0 = time.perf_counter()
+    other = evolve.main(["--nodes", str(OTHER_NODES), "--edges",
+                         str(OTHER_EDGES), "--snapshots", str(SNAPSHOTS),
+                         "--changes", str(CHANGES), "--alg", "bfs",
+                         "--ingest", "--verify", "--device", "cuda",
+                         "--window", "3", "--window-batch", "--stream",
+                         "--campaign-width", "auto", "--calibrate",
+                         "--fused-k", "4"])
+    if not other["verified"]:
+        fail("phase 4b: evolve --ingest did not verify")
+    check_windows("phase 4b", other["windows"], OTHER_NODES)
+    if other["windows"]["stream"].plan.cost_model is None:
+        fail("phase 4b: the stream's plan was not priced by the cost model")
+    evolve_wall = time.perf_counter() - t0
+    del other
+
+    # the live leg: replay with spill backpressure, serving every cut
+    sr = ALL_SEMIRINGS["sssp"]
+    seq = make_evolving_sequence(OTHER_NODES, OTHER_EDGES, SNAPSHOTS,
+                                 CHANGES, seed=0)
+    events = events_from_sequence(seq)
+    metrics = IngestMetrics()
+    store = SnapshotStore(LiveSequence(seq.num_nodes,
+                                       weight_seed=seq.weight_seed),
+                          device=device)
+    log = EdgeLog(seq.num_nodes, max_pending_events=INGEST_MAX_PENDING,
+                  policy="spill", metrics=metrics)
+    watermark = Watermark(log, store)
+    stream = WindowStream(2, name="live-stream",
+                          feed=LiveWindowFeed(store, width=3,
+                                              name="live-stream"))
+    service = QueryService(store)
+    client = service.register(sr, 0, campaign_width=2, name="live-client",
+                              feed=LiveWindowFeed(store, width=3,
+                                                  name="live-client"))
+    live = {}
+
+    def on_cut(_idx):
+        live.update(run_window_stream_batched(store, sr, 0,
+                                              stream=stream).results)
+        service.turn()
+
+    t0 = time.perf_counter()
+    cuts = replay_events(log, watermark, events, on_cut=on_cut)
+    service.drain()
+    replay_wall = time.perf_counter() - t0
+    launches = {"edge_relax": edge_relax.launches,
+                "edge_relax_multi": relax_multi.launches}
+    if launches["edge_relax_multi"] <= 0:
+        fail("phase 4b: ingestion's queries never launched relax_multi")
+    for i in range(SNAPSHOTS):
+        if not np.array_equal(store.seq.snapshot_keys[i],
+                              seq.snapshot_keys[i]):
+            fail(f"phase 4b: live snapshot {i} differs from the sequence")
+    for t in range(SNAPSHOTS - 1):
+        if not (np.array_equal(store.seq.additions[t], seq.additions[t])
+                and np.array_equal(store.seq.deletions[t],
+                                   seq.deletions[t])):
+            fail(f"phase 4b: live Δ pair {t} differs from the sequence")
+    ref = run_window_slide_batched(SnapshotStore(seq, device=device), sr, 0,
+                                   3)
+    if set(live) != set(ref.results) or set(client.results) != set(live):
+        fail(f"phase 4b: live windows {sorted(live)} / "
+             f"{sorted(client.results)} != {sorted(ref.results)}")
+    for wnd, vals in ref.results.items():
+        same_bits(f"phase 4b live stream {wnd}", live[wnd], vals)
+        same_bits(f"phase 4b live service {wnd}", client.results[wnd], vals)
+    service.unregister(client)
+    before = store.stored_edges
+    stats = watermark.compact()
+    after = store.stored_edges
+    if not (stats.retired > 0 and after < before):
+        fail(f"phase 4b: compaction retired {stats.retired} snapshots, "
+             f"stored edges {before} -> {after}")
+    store.window_keys(store.first_live, SNAPSHOTS - 1)
+    row = dict(events=metrics.events, spilled=metrics.spilled,
+               cuts=len(cuts), applied_additions=metrics.applied_additions,
+               applied_deletions=metrics.applied_deletions,
+               common_shrinkage=metrics.common_shrinkage,
+               windows_served=len(live), retired=stats.retired,
+               freed_edges=stats.freed_edges, stored_edges=[before, after],
+               evolve_wall_s=evolve_wall, replay_wall_s=replay_wall,
+               launches=launches)
+    print(f"[chip_smoke] phase 4b: evolve --ingest --calibrate (bfs) "
+          f"verified in {evolve_wall:.1f}s; live replay of {len(events)} "
+          f"events (spill at {INGEST_MAX_PENDING}: {metrics.spilled} "
+          f"spilled) -> {len(cuts)} cuts in {replay_wall:.1f}s with "
+          f"{len(live)} windows served live to a stream and a service "
+          f"client, bit-identical to the precomputed store; compaction "
+          f"retired {stats.retired} snapshots, stored edges {before} -> "
+          f"{after}; launches {launches}", flush=True)
+    return row
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -1437,25 +1732,46 @@ def main() -> None:
     del summary, win, stm
     torch.cuda.empty_cache()
 
-    # 4. the other four semirings at a smaller size
+    # 3b. the query service and the calibrated planner, at full width
     t0 = time.perf_counter()
-    for alg in ("bfs", "sswp", "ssnp", "viterbi"):
+    service_row = service_phase()
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] phase 3b done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    # 4. the other four semirings at a smaller size, their auto campaigns
+    # priced by the calibrated model; then sssp's priced by raw counts,
+    # the plan a user gets without --calibrate
+    t0 = time.perf_counter()
+    for alg, calibrated in (("bfs", True), ("sswp", True), ("ssnp", True),
+                            ("viterbi", True), ("sssp", False)):
         other = evolve.main(["--nodes", str(OTHER_NODES), "--edges",
                              str(OTHER_EDGES), "--snapshots", str(SNAPSHOTS),
                              "--changes", str(CHANGES), "--alg", alg,
                              "--verify", "--device", "cuda", "--window", "3",
                              "--window-batch", "--stream",
-                             "--campaign-width", "auto", "--fused-k", "4"])
+                             "--campaign-width", "auto", "--fused-k", "4"]
+                            + (["--calibrate"] if calibrated else []))
         if not other["verified"]:
             fail(f"{alg} did not verify")
         check_windows(f"phase 4 {alg}", other["windows"], OTHER_NODES)
-        if other["windows"]["stream"].plan is None:
-            fail(f"phase 4 {alg}: the stream made no campaign plan")
-    print(f"[chip_smoke] phase 4: bfs/sswp/ssnp/viterbi verified at "
-          f"{OTHER_NODES} vertices, {OTHER_EDGES} edges, windows of width 3 "
-          f"(auto campaigns, fused k 4), in "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+        plan = other["windows"]["stream"].plan
+        if plan is None or (plan.cost_model is not None) != calibrated:
+            fail(f"phase 4 {alg}: the stream made no "
+                 f"{'calibrated' if calibrated else 'raw-count'} plan")
+    print(f"[chip_smoke] phase 4: bfs/sswp/ssnp/viterbi (auto campaigns "
+          f"priced by the calibrated model) and sssp (priced by raw counts) "
+          f"verified at {OTHER_NODES} vertices, {OTHER_EDGES} edges, windows "
+          f"of width 3, fused k 4, in {time.perf_counter() - t0:.1f}s",
+          flush=True)
     del other
+
+    # 4b. ingestion: evolve --ingest, then a live replay and compaction
+    t0 = time.perf_counter()
+    ingest_row = ingest_phase(device)
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] phase 4b done in {time.perf_counter() - t0:.1f}s",
+          flush=True)
 
     # 5. segment_reduce vs plain
     t0 = time.perf_counter()
@@ -1522,9 +1838,21 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     # 11. records
-    edge_relax_row["launches"] = launches["edge_relax"]
-    relax_multi_row["launches"] = launches["edge_relax_multi"]
+    # each path's launches: phase 3's main path, phase 3b's service and
+    # calibration, phase 4b's ingestion
+    by_phase = {"3": launches, "3b service": service_row["launches"],
+                "3b calibrate": service_row["calibration"]["launches"],
+                "4b": ingest_row["launches"]}
+    edge_relax_row["launches"] = sum(c["edge_relax"]
+                                     for c in by_phase.values())
+    relax_multi_row["launches"] = sum(c["edge_relax_multi"]
+                                      for c in by_phase.values())
+    for row, key in ((edge_relax_row, "edge_relax"),
+                     (relax_multi_row, "edge_relax_multi")):
+        row["launches_by_phase"] = {p: c[key] for p, c in by_phase.items()}
     relax_multi_row["windows"] = windows_row
+    relax_multi_row["service"] = service_row
+    relax_multi_row["ingest"] = ingest_row
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [edge_relax_row, relax_multi_row,
                                   segment_row, bag_row]}))

@@ -1,14 +1,28 @@
 """CommonGraph core of the PyTorch port (counterpart of ``repro.core``).
 
 Layers:
+  ingest       live ingestion (edge-event log, watermark cuts, compaction)
   snapshots    mutation-free window/Δ representation (shared edge blocks)
   kickstarter  the streaming baseline (deletions + trimming) we compare to
   directhop    CommonGraph Direct-Hop schedule (deletion-free, star plan)
   trigrid      Triangular Grid + work-sharing plans (DP-optimal / bisection)
   window       sliding-window executors and streaming campaigns
+  costmodel    measured-cost calibration for the Δ-volume planner
+  service      always-on multi-client query service (admission + scheduling)
 """
 
-from repro_torch.core.snapshots import SnapshotStore
+from repro_torch.core.snapshots import CompactionStats, SnapshotStore
+from repro_torch.core.ingest import (
+    BackpressureStall,
+    EdgeEvent,
+    EdgeLog,
+    IngestMetrics,
+    LiveSequence,
+    LiveWindowFeed,
+    Watermark,
+    events_from_sequence,
+    replay_events,
+)
 from repro_torch.core.kickstarter import StreamStats, run_kickstarter_stream
 from repro_torch.core.directhop import (
     DirectHopRun,
@@ -26,6 +40,17 @@ from repro_torch.core.trigrid import (
     plan_levels,
     run_plan,
     run_plan_batched,
+)
+from repro_torch.core.costmodel import (
+    SweepCostModel,
+    calibrate,
+    measure_sweep_nanos,
+)
+from repro_torch.core.service import (
+    LaunchRecord,
+    QueryService,
+    ServiceClient,
+    ServiceMetrics,
 )
 from repro_torch.core.window import (
     AnchorChain,
@@ -46,7 +71,24 @@ from repro_torch.core.window import (
 
 __all__ = [
     "AnchorChain",
+    "BackpressureStall",
     "CampaignPlan",
+    "CompactionStats",
+    "EdgeEvent",
+    "EdgeLog",
+    "IngestMetrics",
+    "LaunchRecord",
+    "LiveSequence",
+    "LiveWindowFeed",
+    "Watermark",
+    "events_from_sequence",
+    "replay_events",
+    "QueryService",
+    "ServiceClient",
+    "ServiceMetrics",
+    "SweepCostModel",
+    "calibrate",
+    "measure_sweep_nanos",
     "WindowSlideRun",
     "WindowStream",
     "WindowStreamRun",

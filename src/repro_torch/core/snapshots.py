@@ -1,5 +1,5 @@
-"""Snapshot store: window intersections, Δ-batches, mutation-free views
-(PyTorch port of ``repro.core.snapshots``, up to the KickStarter inputs).
+"""Snapshot store: window intersections, Δ-batches, mutation-free views,
+live growth and compaction (PyTorch port of ``repro.core.snapshots``).
 
 This is the paper's graph representation: the CommonGraph of any window
 plus immutable Δ-batches. For nested windows ``[i..j] ⊇ [a..b]``:
@@ -25,10 +25,15 @@ Store contract (what every executor may assume):
   the same LRU beside edge blocks.
 * **Pinning.** ``pin``/``unpin`` exempt a tag from LRU eviction and from
   ``release``; pinning never changes results.
+* **Live stores.** Over a mutable sequence (``ingest.LiveSequence``)
+  ``ingest_cut`` appends cut snapshots and ``compact`` retires snapshots
+  no registered floor or pinned "AS" anchor still needs; ``first_live``
+  is the oldest snapshot kept.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from collections import OrderedDict
 
 import numpy as np
@@ -68,6 +73,40 @@ def anchor_tag(qkey: tuple, window: "tuple[int, int]") -> tuple:
     return ("AS", qkey, tuple(window))
 
 
+@dataclasses.dataclass(frozen=True)
+class CompactionStats:
+    """What one :meth:`SnapshotStore.compact` call retired: ``horizon`` is
+    the first snapshot kept after clamping to every floor and pinned "AS"
+    anchor, ``retired`` the snapshots freed by this call, ``freed_edges``
+    the host-side key/Δ entries released."""
+
+    horizon: int
+    retired: int
+    freed_edges: int
+
+
+def _tag_min_index(tag: tuple) -> "int | None":
+    """Smallest snapshot index a cached tag depends on (None = keep).
+
+    ``("T", i, j)`` and ``("Ts", i, j, n, k)`` depend on ``i``; ``("D",
+    parent, child)`` and ``("DS", lanes, *hops)`` on the smallest window
+    low of their hops; ``("A", t)`` on ``t``; ``("AS", qkey, (i, j))`` on
+    ``i``. Unknown families are kept.
+    """
+    fam = tag[0]
+    if fam in ("T", "Ts"):
+        return int(tag[1])
+    if fam == "D":
+        return min(int(tag[1][0]), int(tag[2][0]))
+    if fam == "DS":
+        return min(int(w[0]) for hop in tag[2:] for w in hop)
+    if fam == "A":
+        return int(tag[1])
+    if fam == "AS":
+        return int(tag[2][0])
+    return None
+
+
 def _block_nbytes(blk) -> int:
     # Cached entries that know their own footprint (engine QueryStates via
     # the ``nbytes`` hook) report it; raw EdgeBlocks are summed directly.
@@ -103,6 +142,8 @@ class SnapshotStore:
         self._cached_nbytes = 0
         self._pins: dict[tuple, int] = {}   # tag -> refcount (see pin())
         self.evictions = 0  # lifetime count, for tests/benchmarks
+        self.first_live = 0  # oldest non-retired snapshot (see compact())
+        self._floors: dict[str, int] = {}   # name -> oldest index needed
 
     # -- block cache (LRU by bytes + explicit release) -------------------------
 
@@ -212,6 +253,10 @@ class SnapshotStore:
             return self._t[(i, j)]
         if j < i:
             raise ValueError(f"window ({i}, {j}) is empty: need i <= j")
+        if i < self.first_live:
+            raise ValueError(
+                f"window ({i}, {j}) reaches below first_live="
+                f"{self.first_live}: snapshot {i} was retired by compact()")
         k = j
         while (i, k) not in self._t:
             k -= 1
@@ -305,9 +350,10 @@ class SnapshotStore:
 
     def common_graph_view(self, i: int | None = None,
                           j: int | None = None) -> EdgeView:
-        """Single-block view of T(i, j); defaults to the global common graph."""
+        """Single-block view of T(i, j); defaults to the global common graph
+        over the live range (``first_live`` .. last snapshot)."""
         if i is None:
-            i = 0
+            i = self.first_live
         if j is None:
             j = self.seq.num_snapshots - 1
         return EdgeView((self.window_block(i, j),), self.num_nodes)
@@ -322,6 +368,104 @@ class SnapshotStore:
         """Keys deleted at transition t → t+1 (KickStarter baseline input)."""
         return self.seq.deletions[t]
 
+    # -- live ingestion (core/ingest.py) ---------------------------------------
+    #
+    # The one write path that grows the store after construction: a live
+    # store wraps a mutable sequence (ingest.LiveSequence); `ingest_cut`
+    # appends one snapshot + canonical Δ pair per watermark cut, and
+    # `compact` retires snapshots no registered floor or pinned "AS" anchor
+    # still needs.
+
+    def ingest_cut(self, keys: np.ndarray, added: np.ndarray,
+                   deleted: np.ndarray, common: "np.ndarray | None" = None,
+                   common_lo: "int | None" = None) -> int:
+        """Install one cut snapshot + Δ pair; returns its index.
+
+        Called from ``ingest.Watermark.cut``: appends to the live sequence,
+        registers the new diagonal ``(idx, idx)`` in the window cache and,
+        when given the watermark's running common graph ``common`` over
+        ``[common_lo .. idx]``, installs it too. A frozen
+        ``EvolvingSequence`` store raises ``TypeError``.
+        """
+        append = getattr(self.seq, "append", None)
+        if append is None:
+            raise TypeError(
+                "ingest_cut needs a mutable live sequence "
+                "(ingest.LiveSequence); EvolvingSequence stores are "
+                "precomputed inputs")
+        idx = append(keys, added, deleted)
+        self._t[(idx, idx)] = keys
+        if common is not None and common_lo is not None and common_lo != idx:
+            self._t[(common_lo, idx)] = common
+        return idx
+
+    def set_floor(self, name: str, index: int) -> None:
+        """Register or move a named compaction floor: the consumer ``name``
+        needs no snapshot older than ``index``. ``compact`` clamps its
+        horizon to the smallest floor."""
+        self._floors[name] = int(index)
+
+    def drop_floor(self, name: str) -> None:
+        """Withdraw a named floor (missing names are a no-op)."""
+        self._floors.pop(name, None)
+
+    @property
+    def stored_edges(self) -> int:
+        """Host-side edge entries currently stored (snapshot keys + Δ
+        pairs); retired entries are ``None`` and count zero."""
+        seq = self.seq
+        arrays = list(seq.snapshot_keys) + list(seq.additions) \
+            + list(seq.deletions)
+        return sum(int(a.shape[0]) for a in arrays if a is not None)
+
+    def compact(self, before: "int | None" = None) -> CompactionStats:
+        """Retire snapshots older than every consumer still needs.
+
+        The horizon starts at ``before`` (default: the latest snapshot) and
+        clamps down to every floor (:meth:`set_floor`) and every pinned
+        "AS" anchor's window low. Snapshots below it are freed (host arrays
+        become ``None``, indices never shift), window-cache entries and
+        device blocks that depend on them are dropped (pinned tags kept,
+        bytes subtracted from ``cached_nbytes`` as the LRU would, not
+        counted as evictions), and ``first_live`` advances. Requires a
+        mutable live sequence, like :meth:`ingest_cut`.
+        """
+        seq = self.seq
+        if not isinstance(seq.snapshot_keys, list):
+            raise TypeError(
+                "compact needs a mutable live sequence "
+                "(ingest.LiveSequence); EvolvingSequence stores are "
+                "precomputed inputs")
+        horizon = seq.num_snapshots - 1 if before is None else int(before)
+        for floor in self._floors.values():
+            horizon = min(horizon, floor)
+        for tag in self._pins:
+            if tag[0] == "AS":
+                horizon = min(horizon, int(tag[2][0]))
+        horizon = max(horizon, self.first_live)
+        freed = 0
+        for i in range(self.first_live, horizon):
+            freed += int(seq.snapshot_keys[i].shape[0])
+            seq.snapshot_keys[i] = None
+            if seq.additions[i] is not None:
+                freed += int(seq.additions[i].shape[0])
+                freed += int(seq.deletions[i].shape[0])
+                seq.additions[i] = None
+                seq.deletions[i] = None
+        retired = horizon - self.first_live
+        if retired:
+            for w in [w for w in self._t if w[0] < horizon]:
+                del self._t[w]
+            for tag in list(self._blocks):
+                low = _tag_min_index(tag)
+                if low is not None and low < horizon \
+                        and not self._pins.get(tag):
+                    self._cached_nbytes -= _block_nbytes(
+                        self._blocks.pop(tag))
+            self.first_live = horizon
+        return CompactionStats(horizon=horizon, retired=retired,
+                               freed_edges=freed)
+
     # -- sliding windows (core/window.py) --------------------------------------
     #
     # Sliding [i..j] → [i+1..j+1] is NOT deletion-free from the old apex:
@@ -329,24 +473,24 @@ class SnapshotStore:
     # apex, from which every window apex is reachable by additions only.
     # ``slide_block`` is delta_block with the anchor made explicit, so all
     # nesting validation and caching carry over. The default anchor is the
-    # global window: the port's store retires no snapshots, so its live
-    # range starts at 0.
+    # live range's window ``(first_live, last)``, the widest one a
+    # compacted store can still intersect.
 
     def slide_block(self, new_window: tuple[int, int],
                     anchor: tuple[int, int] | None = None) -> EdgeBlock:
         """Addition batch hopping the anchor apex state to ``new_window``'s
-        apex (``anchor`` defaults to the global window)."""
+        apex (``anchor`` defaults to the live range's window)."""
         if anchor is None:
-            anchor = (0, self.seq.num_snapshots - 1)
+            anchor = (self.first_live, self.seq.num_snapshots - 1)
         return self.delta_block(anchor, new_window)
 
     def slide_stack(self, windows: "list[tuple[int, int]]",
                     anchor: tuple[int, int] | None = None,
                     num_lanes: int | None = None) -> EdgeBlock:
         """Stacked slide deltas: one lane per window, all hopping from
-        ``anchor`` (default: the global window); ``num_lanes`` buckets the
-        lane axis exactly as in :meth:`delta_stack`."""
+        ``anchor`` (default: the live range's window); ``num_lanes``
+        buckets the lane axis exactly as in :meth:`delta_stack`."""
         if anchor is None:
-            anchor = (0, self.seq.num_snapshots - 1)
+            anchor = (self.first_live, self.seq.num_snapshots - 1)
         return self.delta_stack([(anchor, w) for w in windows],
                                 num_lanes=num_lanes)

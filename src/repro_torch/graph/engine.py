@@ -29,7 +29,7 @@ chunk, chunks added to the running total, seed work added last.
 # The reference's graphlint rules G008/G010 sanction relax_sweep and
 # relax_sweep_fused calls by the dotted names repro.graph.engine and
 # repro.graph.stability only; this module is their port, and its own rule
-# set is queued in ROADMAP.md §A11.
+# set is queued in ROADMAP.md §A9.
 # graphlint: disable-file=G008,G010
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ incremental launch's frontier seeding routes through :func:`seed_state`.
 
 # The reference's graphlint rules G008/G010 sanction relax_sweep calls by
 # the dotted name repro.graph.stability only; this module is its port, and
-# its own rule set is queued in ROADMAP.md §A11.
+# its own rule set is queued in ROADMAP.md §A9.
 # graphlint: disable-file=G008,G010
 
 from __future__ import annotations

@@ -31,6 +31,16 @@ With ``--verify`` every window equals the from-scratch fixpoint of its
 common graph (each checked by one unmasked sweep), the batched slide
 equals the sequential one bit for bit, and the stream equals the cold
 campaigns bit for bit.
+
+``--calibrate`` (with ``--stream``) fits a measured ``SweepCostModel``
+(core/costmodel.py) from timed sweeps at two edge scales, prints its
+per-edge and per-sweep prices, and hands it to the timed stream's
+planner: with ``--campaign-width auto`` the DP then minimizes modeled
+nanoseconds instead of discounted edge counts. ``--ingest`` builds the
+store by replaying the generated sequence as an edge-event firehose
+(core/ingest.py): every snapshot is born from a watermark cut, the cut
+snapshots and Δ pairs are asserted bit-identical to the precomputed
+sequence, and every mode runs over the cut-born store.
 """
 
 from __future__ import annotations
@@ -42,10 +52,17 @@ import numpy as np
 import torch
 
 from repro_torch.core import (
+    EdgeLog,
+    IngestMetrics,
+    LiveSequence,
     SnapshotStore,
+    Watermark,
+    calibrate,
     direct_hop_plan,
+    events_from_sequence,
     optimal_plan,
     plan_added_edges,
+    replay_events,
     run_direct_hop,
     run_direct_hop_batched,
     run_kickstarter_stream,
@@ -77,6 +94,35 @@ def _campaign_width(arg: str):
         raise argparse.ArgumentTypeError(
             f"campaign width must be >= 1, got {width}")
     return width
+
+
+def _ingest_store(seq, device) -> SnapshotStore:
+    """Replay ``seq`` as a timestamped edge firehose and return the live
+    store its watermark cuts materialize, asserted bit-identical to
+    ``SnapshotStore(seq)``: snapshots and Δ pairs."""
+    metrics = IngestMetrics()
+    store = SnapshotStore(LiveSequence(seq.num_nodes,
+                                       weight_seed=seq.weight_seed),
+                          device=device)
+    log = EdgeLog(seq.num_nodes, metrics=metrics)
+    watermark = Watermark(log, store)
+    t0 = time.perf_counter()
+    cuts = replay_events(log, watermark, events_from_sequence(seq))
+    wall = time.perf_counter() - t0
+    live = store.seq
+    for i in range(seq.num_snapshots):
+        assert np.array_equal(live.snapshot_keys[i],
+                              seq.snapshot_keys[i]), f"cut {i} diverged"
+    for t in range(seq.num_snapshots - 1):
+        assert np.array_equal(live.additions[t], seq.additions[t]) \
+            and np.array_equal(live.deletions[t], seq.deletions[t]), \
+            f"Δ pair {t} diverged"
+    print(f"[evolve] ingest: replayed {metrics.events} events -> "
+          f"{len(cuts)} cuts in {wall:.2f}s "
+          f"(+{metrics.applied_additions}/-{metrics.applied_deletions} "
+          f"applied, common-shrinkage {metrics.common_shrinkage}); "
+          f"snapshots bit-identical to the precomputed sequence")
+    return store
 
 
 def _launch_counts() -> dict:
@@ -124,11 +170,23 @@ def main(argv=None) -> dict:
                    help="fused-chunk size for the sliding-window/stream "
                         "launches: up to K frontier-masked sweeps per relax "
                         "call (same results at any K, default 1)")
+    p.add_argument("--ingest", action="store_true",
+                   help="build the store by replaying the sequence as an "
+                        "edge-event firehose (core/ingest.py): snapshots "
+                        "are born from watermark cuts, asserted "
+                        "bit-identical, and serve every mode below")
+    p.add_argument("--calibrate", action="store_true",
+                   help="with --stream: fit a measured SweepCostModel "
+                        "(core/costmodel.py) from timed sweeps, print it, "
+                        "and hand it to the timed stream's campaign planner "
+                        "(campaign-width 'auto' prices in modeled ns)")
     args = p.parse_args(argv)
     if args.window_batch and args.window is None:
         p.error("--window-batch requires --window W")
     if args.stream and args.window is None:
         p.error("--stream requires --window W")
+    if args.calibrate and not args.stream:
+        p.error("--calibrate requires --stream")
     if args.fused_k < 1:
         p.error(f"--fused-k must be >= 1, got {args.fused_k}")
     device = torch.device(args.device)
@@ -145,8 +203,9 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     seq = make_evolving_sequence(args.nodes, args.edges, args.snapshots,
                                  args.changes, seed=args.seed)
-    store = SnapshotStore(seq, device=device)
     print(f"[evolve] generated in {time.perf_counter() - t0:.2f}s")
+    store = (_ingest_store(seq, device) if args.ingest
+             else SnapshotStore(seq, device=device))
 
     t0 = time.perf_counter()
     ks_res, ks_stats = run_kickstarter_stream(store, sr, args.source)
@@ -207,8 +266,9 @@ def _run_windows(store, sr, args) -> dict:
     """The window section: a sequential slide, with ``--window-batch`` a
     batched slide, with ``--stream`` a warm-up stream, the timed stream
     (its planner hinted with the warm-up's stable fraction) and the cold
-    per-campaign baseline. Returns the runs (``slide``, ``batch``,
-    ``stream``, ``cold``; None where not run), their wall seconds
+    per-campaign baseline (with ``--calibrate``, planned under the fitted
+    cost model). Returns the runs (``slide``, ``batch``, ``stream``,
+    ``cold``; None where not run), the ``cost_model``, their wall seconds
     (``wall_s``) and the relax kernels' launches made here and in the
     window verify (``launches``)."""
     before = _launch_counts()
@@ -220,7 +280,7 @@ def _run_windows(store, sr, args) -> dict:
           f"({len(windows)} windows of width {args.window}, "
           f"anchor T{sl.anchor}, Δ-edges {sl.added_edges})")
     out = {"windows": windows, "slide": sl, "batch": None, "stream": None,
-           "cold": None, "wall_s": {"slide": sl.wall_s}}
+           "cold": None, "cost_model": None, "wall_s": {"slide": sl.wall_s}}
     if args.window_batch:
         slb = run_window_slide_batched(store, sr, args.source, args.window,
                                        step=args.window_step,
@@ -238,10 +298,22 @@ def _run_windows(store, sr, args) -> dict:
                                          campaign_width=args.campaign_width,
                                          fused_k=args.fused_k)
         store.release(("AS",))
+        cost_model = None
+        if args.calibrate:
+            # measured prices on the store and launch options the timed
+            # run uses, hops discounted by the warm-up's stable fraction
+            cost_model = calibrate(store, sr, args.source,
+                                   stable_milli=warm.stable_milli,
+                                   fused_k=args.fused_k)
+            print(f"[evolve] calibrated sweep cost: "
+                  f"{cost_model.per_edge_nanos}ns/edge + "
+                  f"{cost_model.per_sweep_nanos}ns/sweep "
+                  f"(hops discounted {cost_model.stable_milli}‰ stable)")
         stm = run_window_stream_batched(store, sr, args.source, args.window,
                                         step=args.window_step,
                                         campaign_width=args.campaign_width,
                                         stable_milli=warm.stable_milli,
+                                        cost_model=cost_model,
                                         fused_k=args.fused_k)
         # the cold baseline rebuilds its anchor per campaign
         t0 = time.perf_counter()
@@ -261,14 +333,19 @@ def _run_windows(store, sr, args) -> dict:
               f"{stm.anchor_delta_edges} edges; "
               f"stable {stm.stable_milli}‰)")
         if stm.plan is not None:
+            unit = ("modeled ns" if stm.plan.cost_model is not None
+                    else "modeled Δ-edges")
+            pricing = ("calibrated SweepCostModel"
+                       if stm.plan.cost_model is not None
+                       else f"{stm.plan.stable_milli}‰ stable")
             print(f"[evolve]   campaign plan (auto, lane_budget "
                   f"{stm.plan.lane_budget}): "
                   f"slide {stm.plan.slide_edges} + anchor "
                   f"{stm.plan.anchor_edges} + pad "
                   f"{stm.plan.padding_edges} = {stm.plan.total_edges} "
-                  f"modeled Δ-edges (priced at {stm.plan.stable_milli}‰ "
-                  "stable)")
+                  f"{unit} (priced at {pricing})")
         out["stream"], out["cold"] = stm, cold
+        out["cost_model"] = cost_model
         out["wall_s"].update(stream=stm.wall_s, cold=t_cold)
     after = _launch_counts()
     out["launches"] = {k: after[k] - before[k] for k in after}

@@ -32,9 +32,21 @@ from _torch_inputs import (  # noqa: E402
     values,
 )
 from repro_torch.core import (  # noqa: E402
+    EdgeLog,
+    LiveSequence,
+    LiveWindowFeed,
     SnapshotStore,
+    SweepCostModel,
+    Watermark,
+    WindowStream,
+    calibrate,
+    campaign_volume,
+    events_from_sequence,
+    optimal_campaigns,
+    replay_events,
     run_window_slide_batched,
     run_window_stream_batched,
+    slide_windows,
 )
 from repro_torch.core.window import _stream_qkey  # noqa: E402
 from repro_torch.graph import make_evolving_sequence  # noqa: E402
@@ -52,7 +64,7 @@ from repro_torch.kernels.segment_reduce import (  # noqa: E402
     segment_layout,
     segment_reduce_ref,
 )
-from repro_torch.launch import train  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR, edge_relax_ref  # noqa: E402
 from repro_torch.kernels.edge_relax_multi.ref import relax_multi_ref  # noqa: E402
 
@@ -512,3 +524,96 @@ def test_cuda_window_slide_and_stream_match_cpu(cuda_device, name, fused_k):
         want = cpu_store.anchor_state_get(qkey, anchor)
         _same_bits(got.values.cpu(), want.values)
         assert torch.equal(got.parent.cpu(), want.parent)
+
+
+@pytest.mark.cuda
+def test_cuda_service_load_matches_cpu(cuda_device):
+    """A seeded service load (4 clients, seed 7) on the card equals the
+    same load on the CPU: every count, every launch record and every
+    client's results bit for bit; only the card launches relax_multi."""
+    seq = make_evolving_sequence(3000, 24_000, 6, 500, seed=7)
+    specs, schedule = serve.generate_load(6, num_clients=4, seed=7)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        store = SnapshotStore(seq, granule=512, device=dev)
+        before = relax_multi.launches
+        service, clients = serve.run_service_load(store, specs, schedule)
+        runs.append((service, clients, relax_multi.launches - before))
+    (cpu_svc, cpu_clients, cpu_n), (svc, clients, card_n) = runs
+    assert cpu_n == 0 < card_n
+    m, cm = svc.metrics(), cpu_svc.metrics()
+    for field in ("admitted", "completed", "turns", "launches", "lanes",
+                  "padded_lanes", "anchor_rebuilds", "anchor_hops",
+                  "anchor_hits", "edge_work", "unstable_vertex_lanes"):
+        assert getattr(m, field) == getattr(cm, field), field
+    assert m.completed == m.admitted > 0
+    assert [(r.group, r.anchor, r.windows, r.clients, r.bucket,
+             r.anchor_events, r.edge_work, r.iterations)
+            for r in svc.launch_log] == \
+        [(r.group, r.anchor, r.windows, r.clients, r.bucket,
+          r.anchor_events, r.edge_work, r.iterations)
+         for r in cpu_svc.launch_log]
+    for got, want in zip(clients, cpu_clients):
+        assert list(got.results) == list(want.results)
+        for wnd, vals in got.results.items():
+            assert vals.is_cuda
+            _same_bits(vals.cpu(), want.results[wnd])
+
+
+@pytest.mark.cuda
+def test_cuda_ingested_store_matches_cpu(cuda_device):
+    """A store born from a spill-policy replay on the card, with a live
+    feed into a stream and a compaction, serves the precomputed CPU
+    store's window results bit for bit, before and after compacting."""
+    seq = make_evolving_sequence(3000, 24_000, 6, 500, seed=5)
+    sr = ALL_SEMIRINGS["sssp"]
+    store = SnapshotStore(LiveSequence(seq.num_nodes,
+                                       weight_seed=seq.weight_seed),
+                          granule=512, device=cuda_device)
+    log = EdgeLog(seq.num_nodes, max_pending_events=4096, policy="spill")
+    watermark = Watermark(log, store)
+    stream = WindowStream(2, name="live",
+                          feed=LiveWindowFeed(store, width=3, name="live"))
+    live = {}
+    replay_events(log, watermark, events_from_sequence(seq),
+                  on_cut=lambda _i: live.update(run_window_stream_batched(
+                      store, sr, 0, stream=stream).results))
+    assert log.metrics.spilled > 0
+    for i in range(seq.num_snapshots):
+        assert np.array_equal(store.seq.snapshot_keys[i],
+                              seq.snapshot_keys[i])
+    cpu = SnapshotStore(seq, granule=512, device="cpu")
+    want = run_window_slide_batched(cpu, sr, 0, 3)
+    assert set(live) == set(want.results)
+    for wnd, vals in want.results.items():
+        assert live[wnd].is_cuda
+        _same_bits(live[wnd].cpu(), vals)
+    before = store.stored_edges
+    stats = watermark.compact()
+    assert stats.retired > 0 and store.stored_edges < before
+    lo = store.first_live
+    got = run_window_slide_batched(store, sr, 0, 2, start=lo)
+    ref = run_window_slide_batched(cpu, sr, 0, 2, start=lo)
+    for wnd, vals in ref.results.items():
+        _same_bits(got.results[wnd].cpu(), vals)
+
+
+@pytest.mark.cuda
+def test_cuda_calibrate(cuda_device):
+    """``calibrate`` on the card launches relax_multi, returns integer
+    coefficients with per_edge >= 1, and its plan is no worse than the
+    raw-count plan under the same model."""
+    seq = make_evolving_sequence(3000, 24_000, 6, 500, seed=0)
+    store = SnapshotStore(seq, granule=512, device=cuda_device)
+    before = relax_multi.launches
+    model = calibrate(store, ALL_SEMIRINGS["sssp"], 0, stable_milli=500,
+                      fused_k=4)
+    assert relax_multi.launches > before
+    assert isinstance(model, SweepCostModel)
+    assert isinstance(model.per_edge_nanos, int) and model.per_edge_nanos >= 1
+    assert isinstance(model.per_sweep_nanos, int)
+    windows = slide_windows(6, 3)
+    raw = optimal_campaigns(store, windows)
+    cal = optimal_campaigns(store, windows, cost_model=model)
+    assert cal.total_edges <= campaign_volume(
+        store, raw.campaigns, cost_model=model).total_edges
