@@ -26,7 +26,9 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
 3. main path at full size: the port's evolve driver, all five modes, sssp,
    and the window section (``--window 4 --window-batch --stream
    --campaign-width 2``: sequential and batched slides, a stream of 3
-   campaigns, the cold campaigns), ``--verify`` (every mode equals
+   campaigns, the cold campaigns), ``--shard`` (the batched executors'
+   lanes over a mesh of every local card; prints the ``shard[...]``
+   lines), ``--verify`` (every mode equals
    from-scratch on every snapshot, each from-scratch result is a
    fixpoint, every window equals its from-scratch fixpoint, the batched
    slide the sequential one and the stream the cold campaigns bit for
@@ -45,6 +47,21 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    the same store, counted as its own path: over ``slide_windows(8, 4)``
    the calibrated plan must cost no more than the raw-count plan priced
    under the same model;
+3c. lane sharding on phase 2's store, the counts set to 0 just before and
+   read just after: on a mesh naming the card four times (and on every
+   local card where there are two or more), ``run_direct_hop_batched``,
+   ``run_plan_batched`` on the optimal plan, the batched slide of 5
+   width-4 windows (bucket 8) and the ``campaign_width="auto"`` stream,
+   each run unmeshed (cold), meshed and unmeshed again (warm): every
+   meshed run equals the unmeshed one bit for bit (values, per-launch
+   work and sweeps, stable fraction; the stream's plan is the planner's at
+   the mesh's extent) with every launch bucketed to ``lane_bucket(lanes,
+   extent)``; the engine's sharded launch of the 8 dhb lanes equals the
+   unsharded one lane for lane (values, parents, iterations, edge_work,
+   unstable); phase 3b's load at 2^18/2^20 through the service, meshed
+   against unmeshed (every count, every launch record but its bucket,
+   every result). Prints per executor the walls, relax launches,
+   set-algebra seconds and the split, replica and gather seconds;
 4. the other four semirings through all five modes and the window
    section (width 3, ``--campaign-width auto`` priced by ``--calibrate``,
    ``--fused-k 4``) with ``--verify`` at 2^18 vertices and 2^20 edges,
@@ -394,9 +411,10 @@ def check_windows(tag: str, win: dict, n: int) -> None:
         fail(f"{tag}: the window section never launched relax_multi")
 
 
-def kernel_phase(device, timing=relax_timing):
+def kernel_phase(device, timing=relax_timing, keep=None):
     """Phase 2: both kernels against their plain versions on the card, on
-    the blocks a store of the main path's sequence gives them."""
+    the blocks a store of the main path's sequence gives them; the store
+    goes into ``keep["store"]`` when a dict is given (phase 3c's)."""
     import numpy as np
     import torch
     from repro_torch.core import SnapshotStore
@@ -410,6 +428,8 @@ def kernel_phase(device, timing=relax_timing):
     t0 = time.perf_counter()
     seq = make_evolving_sequence(NODES, EDGES, SNAPSHOTS, CHANGES, seed=0)
     store = SnapshotStore(seq, device=device)
+    if keep is not None:
+        keep["store"] = store
     n = seq.num_nodes
     window = (0, SNAPSHOTS - 1)
     hops = [(window, (i, i)) for i in range(SNAPSHOTS)]
@@ -1377,6 +1397,251 @@ def dien_train_phase(device):
     return bag_launches, seg_launches, run
 
 
+def same_runs(what: str, got, want, keys) -> None:
+    """fail() unless two executor runs agree: per-launch work and sweeps,
+    stable fraction (where the run records one), and the result of every
+    key bit for bit, on the same device."""
+    if [(h.edge_work, h.sweeps) for h in got.hop_stats] != \
+            [(h.edge_work, h.sweeps) for h in want.hop_stats]:
+        fail(f"{what}: per-launch work and sweeps differ")
+    stable = [getattr(run, "stable_milli", None) for run in (got, want)]
+    if stable[0] != stable[1]:
+        fail(f"{what}: stable ‰ {stable[0]} vs {stable[1]}")
+    for key in keys:
+        if got.results[key].device != want.results[key].device:
+            fail(f"{what} {key}: result on {got.results[key].device}")
+        same_bits(f"{what} {key}", got.results[key], want.results[key])
+
+
+def shard_phase(store, device) -> dict:
+    """Phase 3c: lane sharding on phase 2's full-size store, the relax
+    counts set to 0 just before and read just after. Per mesh (the card
+    named four times; every local card where there are two or more) the
+    batched executors run unmeshed (cold), meshed, and unmeshed again
+    (warm), each meshed run bit for bit against the unmeshed one with
+    every launch bucketed to ``lane_bucket(lanes, extent)``; the engine's
+    sharded launch of the dhb lanes lane for lane (values, parents,
+    iterations, edge_work, unstable); then phase 3b's load at 2^18/2^20
+    through the service, meshed against unmeshed."""
+    import torch
+    from repro_torch.core import (
+        SnapshotStore,
+        optimal_campaigns,
+        optimal_plan,
+        run_direct_hop_batched,
+        run_plan_batched,
+        run_window_slide_batched,
+        run_window_stream_batched,
+        slide_windows,
+    )
+    from repro_torch.core.trigrid import _shard_snapshot_axis
+    from repro_torch.graph import ALL_SEMIRINGS, make_evolving_sequence
+    from repro_torch.graph.edgeset import lane_bucket
+    from repro_torch.graph.engine import (
+        ShardSeconds,
+        gather_lane_states,
+        incremental_additions_batched,
+        incremental_additions_sharded,
+        run_to_fixpoint,
+    )
+    from repro_torch.kernels import edge_relax, relax_multi
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_snapshot_mesh
+
+    meshes = {"4 x cuda:0": make_snapshot_mesh([device] * 4)}
+    if torch.cuda.device_count() >= 2:
+        meshes[f"{torch.cuda.device_count()} cards"] = make_snapshot_mesh()
+    sr = ALL_SEMIRINGS["sssp"]
+    snaps = store.seq.num_snapshots
+    windows = slide_windows(snaps, WINDOW)
+    # the set algebra each run does: delta_keys (the stacks' set
+    # differences, window intersections inside) timed on this store
+    set_algebra = [0.0]
+    delta_keys = store.delta_keys
+
+    def timed_delta_keys(parent, child):
+        t = time.perf_counter()
+        try:
+            return delta_keys(parent, child)
+        finally:
+            set_algebra[0] += time.perf_counter() - t
+
+    store.delta_keys = timed_delta_keys
+    edge_relax.launches = 0
+    relax_multi.launches = 0
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    plan = optimal_plan(store)
+    plan_s = time.perf_counter() - t0
+
+    def stream(mesh):
+        store.release(("AS",))
+        return run_window_stream_batched(store, sr, 0, WINDOW,
+                                         campaign_width="auto",
+                                         track_parents=True, mesh=mesh)
+
+    executors = {
+        "dhb": lambda mesh: run_direct_hop_batched(
+            store, sr, 0, track_parents=True, mesh=mesh),
+        "wsb": lambda mesh: run_plan_batched(
+            store, plan, sr, 0, track_parents=True, mesh=mesh),
+        "slide": lambda mesh: run_window_slide_batched(
+            store, sr, 0, windows=windows, track_parents=True, mesh=mesh),
+        "stream": stream,
+    }
+
+    def timed_run(fn, mesh):
+        ShardSeconds.split = ShardSeconds.replicas = ShardSeconds.gather = 0.0
+        set_algebra[0] = 0.0
+        before = relax_multi.launches
+        t = time.perf_counter()
+        run = fn(mesh)
+        wall = time.perf_counter() - t
+        return run, dict(wall_s=wall, launches=relax_multi.launches - before,
+                         set_algebra_s=set_algebra[0],
+                         split_s=ShardSeconds.split,
+                         replicas_s=ShardSeconds.replicas,
+                         gather_s=ShardSeconds.gather)
+
+    rows = {}
+    for label, mesh in meshes.items():
+        extent = mesh.shape["data"]
+        for name, fn in executors.items():
+            plain, cold = timed_run(fn, None)
+            got, meshed = timed_run(fn, mesh)
+            again, warm = timed_run(fn, None)
+            what = f"phase 3c {name} on {label}"
+            if got.lane_layout != [(lanes, lane_bucket(lanes, extent))
+                                   for lanes, _ in got.lane_layout]:
+                fail(f"{what}: lane layout {got.lane_layout}")
+            if meshed["launches"] <= 0:
+                fail(f"{what}: never launched relax_multi")
+            # dhb's results are a list per snapshot, the others' a dict
+            keys = (list(plain.results) if isinstance(plain.results, dict)
+                    else list(range(len(plain.results))))
+            if len(got.results) != len(keys) or (
+                    isinstance(got.results, dict)
+                    and list(got.results) != keys):
+                fail(f"{what}: results for other keys than {keys}")
+            if name == "stream":
+                want = optimal_campaigns(store, windows, data_extent=extent)
+                if got.campaigns != want.campaigns:
+                    fail(f"{what}: campaigns {got.campaigns} != the "
+                         f"planner's {want.campaigns} at extent {extent}")
+                for key in keys:
+                    same_bits(f"{what} {key}", got.results[key],
+                              plain.results[key])
+            else:
+                same_runs(what, got, plain, keys)
+            same_runs(f"{what} (warm unmeshed)", again, plain, keys)
+            rows[f"{name} on {label}"] = dict(
+                lane_layout=got.lane_layout,
+                unmeshed_lane_layout=plain.lane_layout, unmeshed_cold=cold,
+                meshed=meshed, unmeshed_warm=warm)
+            print(f"[chip_smoke] phase 3c {name} on {label}: lanes "
+                  f"{got.lane_layout} (unmeshed {plain.lane_layout}) bit "
+                  f"for bit; wall s unmeshed cold {cold['wall_s']:.3f} / "
+                  f"meshed {meshed['wall_s']:.3f} / unmeshed warm "
+                  f"{warm['wall_s']:.3f}; relax_multi launches "
+                  f"{cold['launches']} / {meshed['launches']} / "
+                  f"{warm['launches']}; set algebra s "
+                  f"{cold['set_algebra_s']:.3f} / "
+                  f"{meshed['set_algebra_s']:.3f} / "
+                  f"{warm['set_algebra_s']:.3f}; meshed split "
+                  f"{meshed['split_s']:.6f} s, replicas "
+                  f"{meshed['replicas_s']:.6f} s, gather "
+                  f"{meshed['gather_s']:.6f} s (host)", flush=True)
+        store.release(("AS",))
+
+    # the engine alone on the dhb lanes: lane for lane, parents tracked
+    mesh = meshes["4 x cuda:0"]
+    window = (0, snaps - 1)
+    apex = store.common_graph_view(*window)
+    base = run_to_fixpoint(apex, sr, 0, track_parents=True)
+    bucket = lane_bucket(snaps, mesh.shape["data"])
+    stacked = store.delta_stack([(window, (i, i)) for i in range(snaps)],
+                                num_lanes=bucket)
+    values, parent = gather_lane_states(base.values[None], base.parent[None],
+                                        [0] * bucket)
+    lane_valid = torch.arange(bucket, device=device) < snaps
+    want = incremental_additions_batched(
+        store.num_nodes, sr, values, parent, shared_blocks=apex.blocks,
+        delta_blocks=(stacked,), seed_blocks=(stacked,),
+        lane_valid=lane_valid, track_parents=True)
+    shards = [s._replace(shared_blocks=apex.blocks)
+              for s in _shard_snapshot_axis(mesh, values, parent,
+                                            (stacked,), lane_valid)]
+    got = incremental_additions_sharded(store.num_nodes, sr, shards,
+                                        track_parents=True)
+    for field in want._fields:
+        same_bits(f"phase 3c engine {field}", getattr(got, field),
+                  getattr(want, field))
+    gather_ms = cuda_ms(lambda: (torch.cat([s.values for s in shards]),
+                                 torch.cat([s.parent for s in shards])), 10)
+    print(f"[chip_smoke] phase 3c engine: {bucket} dhb lanes in "
+          f"{len(shards)} shards equal the unsharded launch lane for lane "
+          f"(values, parents, iterations, edge_work, unstable); gathering "
+          f"values and parents of {bucket} x {store.num_nodes} takes "
+          f"{gather_ms:.3f} ms on the card", flush=True)
+
+    # the query service at phase 4's size, meshed against unmeshed
+    seq = make_evolving_sequence(OTHER_NODES, OTHER_EDGES, SNAPSHOTS,
+                                 CHANGES, seed=0)
+    specs, schedule = serve.generate_load(SNAPSHOTS,
+                                          num_clients=SERVICE_CLIENTS, seed=0)
+    service = {}
+    for label, m in [("unmeshed", None)] + list(meshes.items()):
+        svc_store = SnapshotStore(seq, device=device)
+        before = relax_multi.launches
+        t = time.perf_counter()
+        svc, clients = serve.run_service_load(svc_store, specs, schedule,
+                                              mesh=m)
+        service[label] = (svc, clients, time.perf_counter() - t,
+                          relax_multi.launches - before)
+    plain, plain_clients, plain_wall, plain_n = service.pop("unmeshed")
+    pm = plain.metrics()
+    service_row = {"unmeshed": dict(wall_s=plain_wall, launches=plain_n,
+                                    turn_wall_s=pm.wall_s)}
+    for label, (svc, clients, wall, n_launch) in service.items():
+        m = svc.metrics()
+        extent = meshes[label].shape["data"]
+        for field in ("admitted", "completed", "turns", "launches", "lanes",
+                      "anchor_rebuilds", "anchor_hops", "anchor_hits",
+                      "edge_work", "seeded_vertex_lanes",
+                      "unstable_vertex_lanes"):
+            if getattr(m, field) != getattr(pm, field):
+                fail(f"phase 3c service on {label}: {field} "
+                     f"{getattr(m, field)} vs {getattr(pm, field)}")
+        for rec, prec in zip(svc.launch_log, plain.launch_log):
+            if (rec.group, rec.anchor, rec.windows, rec.clients,
+                    rec.anchor_events, rec.edge_work, rec.iterations) != \
+                    (prec.group, prec.anchor, prec.windows, prec.clients,
+                     prec.anchor_events, prec.edge_work, prec.iterations) \
+                    or rec.bucket != lane_bucket(rec.lanes, extent):
+                fail(f"phase 3c service on {label}: launch record {rec} vs "
+                     f"{prec}")
+        for got_c, want_c in zip(clients, plain_clients):
+            if list(got_c.results) != list(want_c.results):
+                fail(f"phase 3c service on {label}: {got_c.name}'s windows")
+            for wnd, vals in want_c.results.items():
+                same_bits(f"phase 3c service on {label} {got_c.name} {wnd}",
+                          got_c.results[wnd], vals)
+        service_row[label] = dict(wall_s=wall, launches=n_launch,
+                                  turn_wall_s=m.wall_s,
+                                  buckets=[r.bucket for r in svc.launch_log])
+        print(f"[chip_smoke] phase 3c service on {label}: {m.completed} "
+              f"queries in {m.launches} launches (buckets "
+              f"{service_row[label]['buckets']}) equal the unmeshed load bit "
+              f"for bit; wall s {wall:.3f} vs unmeshed {plain_wall:.3f}; "
+              f"relax_multi launches {n_launch} vs {plain_n}", flush=True)
+    launches = {"edge_relax": edge_relax.launches,
+                "edge_relax_multi": relax_multi.launches}
+    del store.delta_keys
+    return dict(launches=launches, plan_s=plan_s, executors=rows,
+                gather_ms=gather_ms, service=service_row,
+                wall_s=time.perf_counter() - t_phase)
+
+
 def service_phase() -> dict:
     """Phase 3b: the query service at full width (``serve --service``,
     ``SERVICE_CLIENTS`` clients over the main path's sequence), the relax
@@ -1673,7 +1938,8 @@ def main() -> None:
 
     # 2. kernels vs plain
     t0 = time.perf_counter()
-    edge_relax_row, relax_multi_row = kernel_phase(device)
+    keep = {}
+    edge_relax_row, relax_multi_row = kernel_phase(device, keep=keep)
     torch.cuda.empty_cache()
     print(f"[chip_smoke] phase 2 done in {time.perf_counter() - t0:.1f}s",
           flush=True)
@@ -1681,8 +1947,8 @@ def main() -> None:
     # 3. main path, counters zeroed just before and read just after
     argv = ["--nodes", str(NODES), "--edges", str(EDGES), "--snapshots",
             str(SNAPSHOTS), "--changes", str(CHANGES), "--alg", "sssp",
-            "--verify", "--device", "cuda", "--window", str(WINDOW),
-            "--window-batch", "--stream", "--campaign-width",
+            "--verify", "--device", "cuda", "--shard", "--window",
+            str(WINDOW), "--window-batch", "--stream", "--campaign-width",
             str(CAMPAIGN_WIDTH)]
     t0 = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
@@ -1738,6 +2004,14 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"[chip_smoke] phase 3b done in {time.perf_counter() - t0:.1f}s",
           flush=True)
+
+    # 3c. lane sharding on phase 2's store, counters zeroed before and read
+    # after
+    t0 = time.perf_counter()
+    shard_row = shard_phase(keep.pop("store"), device)
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] phase 3c: launches {shard_row['launches']}; done "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
 
     # 4. the other four semirings at a smaller size, their auto campaigns
     # priced by the calibrated model; then sssp's priced by raw counts,
@@ -1839,9 +2113,11 @@ def main() -> None:
 
     # 11. records
     # each path's launches: phase 3's main path, phase 3b's service and
-    # calibration, phase 4b's ingestion
+    # calibration, phase 3c's sharded and unsharded runs, phase 4b's
+    # ingestion
     by_phase = {"3": launches, "3b service": service_row["launches"],
                 "3b calibrate": service_row["calibration"]["launches"],
+                "3c shard": shard_row["launches"],
                 "4b": ingest_row["launches"]}
     edge_relax_row["launches"] = sum(c["edge_relax"]
                                      for c in by_phase.values())
@@ -1852,6 +2128,7 @@ def main() -> None:
         row["launches_by_phase"] = {p: c[key] for p, c in by_phase.items()}
     relax_multi_row["windows"] = windows_row
     relax_multi_row["service"] = service_row
+    relax_multi_row["shard"] = shard_row
     relax_multi_row["ingest"] = ingest_row
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [edge_relax_row, relax_multi_row,

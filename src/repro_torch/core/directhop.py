@@ -84,14 +84,16 @@ def run_direct_hop_batched(
     max_iters: int = 10_000,
     cg_split: int = 1,
     track_parents: bool = False,
+    mesh=None,
 ) -> DirectHopRun:
     """Batched Direct-Hop: all snapshot hops as ONE stacked computation —
     the degenerate star-plan case of the level-synchronous TG executor (one
-    level, one lane per snapshot)."""
+    level, one lane per snapshot); on a ``mesh`` (launch/mesh.py) the
+    snapshot lanes split over its devices."""
     n_snap = store.seq.num_snapshots
     ws = run_plan_batched(store, direct_hop_plan(n=n_snap), semiring, source,
                           max_iters, cg_split=cg_split,
-                          track_parents=track_parents)
+                          track_parents=track_parents, mesh=mesh)
     return DirectHopRun([ws.results[i] for i in range(n_snap)],
                         ws.base_stats, ws.hop_stats, ws.wall_s,
                         ws.lane_layout)

@@ -1,6 +1,7 @@
 """Always-on query service: many clients, one evolving graph (PyTorch port
 of ``repro.core.service``; scheduling and packing are host code copied
-from the reference, without its ``mesh=`` and ``gated=`` options).
+from the reference, without its ``gated=`` option). With ``mesh=``
+(launch/mesh.py) every packed launch's lanes split over a ``data`` mesh.
 
 A long-lived :class:`QueryService` accepts an open-loop stream of
 heterogeneous window queries (mixed sources, semirings, window extents)
@@ -200,11 +201,15 @@ class QueryService:
     split). ``turn_budget`` caps lanes drawn per turn (None = unbounded);
     at least one ready client is served per turn regardless. ``seed`` is
     the frontier-seeding mode of every launch and anchor hop
-    (``"instability"`` or ``"delta"``; same values either way).
+    (``"instability"`` or ``"delta"``; same values either way). ``mesh``
+    (a ``data`` mesh, launch/mesh.py) splits every packed launch's lanes
+    over its devices; the lanes then bucket to ``lane_bucket(lanes,
+    data_extent)`` (``LaunchRecord.bucket``) and results still come back
+    on the store's device.
     """
 
     def __init__(self, store: SnapshotStore, *, lane_budget: int = 8,
-                 turn_budget: "int | None" = None,
+                 turn_budget: "int | None" = None, mesh=None,
                  seed: str = "instability"):
         if lane_budget < 1:
             raise ValueError(f"lane_budget must be >= 1, got {lane_budget}")
@@ -213,6 +218,7 @@ class QueryService:
         self.store = store
         self.lane_budget = lane_budget
         self.turn_budget = turn_budget
+        self.mesh = mesh
         self.seed = seed
         self.clients: "list[ServiceClient]" = []
         self.launch_log: "list[LaunchRecord]" = []
@@ -479,7 +485,8 @@ class QueryService:
         res, bucket = _slide_launch(
             self.store, lead.semiring, anchor_view, states, windows, anchor,
             max_iters=lead.max_iters, track_parents=lead.track_parents,
-            lane_map=lane_map, seed=self.seed, fused_k=lead.fused_k)
+            mesh=self.mesh, lane_map=lane_map, seed=self.seed,
+            fused_k=lead.fused_k)
         done = time.perf_counter()
         for lane, (wnd, client) in enumerate(zip(windows, owners)):
             client.results[wnd] = res.values[lane]

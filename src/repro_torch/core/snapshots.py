@@ -25,6 +25,10 @@ Store contract (what every executor may assume):
   the same LRU beside edge blocks.
 * **Pinning.** ``pin``/``unpin`` exempt a tag from LRU eviction and from
   ``release``; pinning never changes results.
+* **Replicas.** ``replicas`` places cached blocks on the other devices of
+  a ``data`` mesh: copies kept per (tag, device) outside the LRU's byte
+  accounting, tag order and evictions, dropped when their tag leaves the
+  cache.
 * **Live stores.** Over a mutable sequence (``ingest.LiveSequence``)
   ``ingest_cut`` appends cut snapshots and ``compact`` retires snapshots
   no registered floor or pinned "AS" anchor still needs; ``first_live``
@@ -139,6 +143,8 @@ class SnapshotStore:
             (i, i): seq.snapshot_keys[i] for i in range(seq.num_snapshots)
         }
         self._blocks: OrderedDict[tuple, EdgeBlock] = OrderedDict()
+        # tag -> {device: the cached block's copy there} (see replicas())
+        self._replicas: dict[tuple, dict[torch.device, EdgeBlock]] = {}
         self._cached_nbytes = 0
         self._pins: dict[tuple, int] = {}   # tag -> refcount (see pin())
         self.evictions = 0  # lifetime count, for tests/benchmarks
@@ -163,6 +169,7 @@ class SnapshotStore:
         old = self._blocks.pop(tag, None)
         if old is not None:
             self._cached_nbytes -= _block_nbytes(old)
+            self._replicas.pop(tag, None)
         self._blocks[tag] = blk
         self._cached_nbytes += _block_nbytes(blk)
         if self.cache_bytes is not None and self._cached_nbytes > self.cache_bytes:
@@ -174,6 +181,7 @@ class SnapshotStore:
                 if old_tag == tag or self._pins.get(old_tag):
                     continue
                 self._cached_nbytes -= _block_nbytes(self._blocks.pop(old_tag))
+                self._replicas.pop(old_tag, None)
                 self.evictions += 1
         return blk
 
@@ -216,8 +224,30 @@ class SnapshotStore:
         freed = 0
         for t in drop:
             freed += _block_nbytes(self._blocks.pop(t))
+            self._replicas.pop(t, None)
         self._cached_nbytes -= freed
         return freed
+
+    def replicas(self, blocks, device: torch.device) -> "tuple[EdgeBlock, ...]":
+        """``blocks`` (a view's blocks) on ``device``: the blocks themselves
+        where they already lie there, else copies. A cached block's copy is
+        kept per (tag, device) until its tag leaves the cache (eviction,
+        overwrite, :meth:`release`, :meth:`compact`); it is not charged to
+        ``cached_nbytes`` and does not touch the LRU's order, so the
+        store's eviction behaviour stays that of the unsharded run."""
+        device = torch.device(device)
+        out = []
+        for blk in blocks:
+            if blk.src.device == device:
+                out.append(blk)
+                continue
+            tag = next((t for t, b in self._blocks.items() if b is blk), None)
+            copies = ({} if tag is None
+                      else self._replicas.setdefault(tag, {}))
+            if device not in copies:
+                copies[device] = EdgeBlock(*(a.to(device) for a in blk))
+            out.append(copies[device])
+        return tuple(out)
 
     # -- anchor-state cache ("AS" family) ----------------------------------------
 
@@ -462,6 +492,7 @@ class SnapshotStore:
                         and not self._pins.get(tag):
                     self._cached_nbytes -= _block_nbytes(
                         self._blocks.pop(tag))
+                    self._replicas.pop(tag, None)
             self.first_live = horizon
         return CompactionStats(horizon=horizon, retired=retired,
                                freed_edges=freed)

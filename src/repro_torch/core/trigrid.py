@@ -15,8 +15,10 @@ Execution walks the plan tree: each node's state hops from its parent state
 via the addition-only incremental engine; each node's edge view = parent's
 view ⊕ one Δ block (immutable, shared — zero mutation). ``run_plan`` walks
 it depth first; ``run_plan_batched`` runs each depth as ONE batched launch
-(lane axis padded to ``lane_bucket``, masked trailing lanes), with values,
-parents, iterations and edge work bit-identical to the sequential walk.
+(lane axis padded to ``lane_bucket(lanes, data_extent)``, masked trailing
+lanes, and split over the devices of a ``data`` mesh when one is given:
+``_shard_snapshot_axis``), with values, parents, iterations and edge work
+bit-identical to the sequential walk.
 """
 
 from __future__ import annotations
@@ -28,12 +30,15 @@ import torch
 
 from repro_torch.core.kickstarter import StreamStats
 from repro_torch.core.snapshots import SnapshotStore
-from repro_torch.graph.edgeset import EdgeView, lane_bucket
+from repro_torch.graph.edgeset import EdgeBlock, EdgeView, lane_bucket
 from repro_torch.graph.engine import (
+    LaneShard,
+    ShardSeconds,
     gather_lane_states,
     host_sync,
     incremental_additions,
     incremental_additions_batched,
+    incremental_additions_sharded,
     run_to_fixpoint,
 )
 from repro_torch.graph.semiring import Semiring
@@ -269,6 +274,79 @@ def plan_levels(plan: PlanNode) -> list[list[tuple[int, PlanNode]]]:
         cur = [c for _, c in nxt]
 
 
+def _shard_snapshot_axis(mesh, values, parent, blocks, lane_valid):
+    """Split the lane (snapshot) axis over the mesh's ``data`` axis.
+
+    Without a mesh the inputs come back unchanged. With one, device ``d``
+    of ``D`` gets the contiguous lanes ``[d·b/D, (d+1)·b/D)`` of the
+    ``b``-lane launch (``PartitionSpec("data")``'s layout): a
+    :class:`LaneShard` of its values, parents, rows of each stacked block
+    in ``blocks`` and its ``lane_valid`` slice, placed on
+    ``mesh.devices[d]``. Callers bucket the lane axis with
+    ``lane_bucket(lanes, data_extent)`` first, so a mesh launch always
+    shards: a lane count that does not divide raises, and there is no
+    replicated fallback. The state must lie on the mesh's first device,
+    where the results are gathered.
+    """
+    if mesh is None:
+        return values, parent, blocks, lane_valid
+    extent = mesh.shape["data"]
+    if values.shape[0] % extent:
+        raise ValueError(
+            f"lane axis of {values.shape[0]} does not divide the "
+            f"{extent}-device data axis — callers must bucket "
+            "lane counts with lane_bucket() before sharding")
+    if mesh.devices[0] != values.device:
+        raise ValueError(f"the mesh's first device {mesh.devices[0]} is not "
+                         f"the state's device {values.device}: results "
+                         "are gathered onto the first device")
+    t0 = time.perf_counter()
+    per = values.shape[0] // extent
+    shards = []
+    for d, dev in enumerate(mesh.devices):
+        rows = slice(d * per, (d + 1) * per)
+        shards.append(LaneShard(
+            values[rows].to(dev), parent[rows].to(dev),
+            tuple(EdgeBlock(*(a[rows].to(dev) for a in b)) for b in blocks),
+            lane_valid[rows].to(dev)))
+    ShardSeconds.split += time.perf_counter() - t0
+    return shards
+
+
+def _lane_launch(store: SnapshotStore, mesh, semiring: Semiring, values,
+                 parent, shared_blocks, delta_blocks, lanes: int, *,
+                 max_iters: int, track_parents: bool, seed: str,
+                 fused_k: int):
+    """ONE batched launch of the executors (``run_plan_batched``'s levels,
+    ``core/window.py``'s slides) over ``lanes`` valid lanes, padded to
+    ``lane_bucket(lanes, data_extent)`` with masked trailing lanes. The
+    frontier seeds from the last Δ group; with a mesh the lanes split over
+    its devices, each shard relaxing the shared blocks' copy on its device
+    (``SnapshotStore.replicas``), and the result is gathered onto the
+    store's device."""
+    bucket = lane_bucket(lanes, mesh.shape["data"] if mesh is not None else 1)
+    if values.shape[0] != bucket:
+        raise ValueError(f"{values.shape[0]} state lanes for {lanes} valid "
+                         f"lanes: the launch pads to {bucket}")
+    lane_valid = torch.arange(bucket, device=values.device) < lanes
+    kw = dict(max_iters=max_iters, track_parents=track_parents, seed=seed,
+              fused_k=fused_k)
+    if mesh is None:
+        return incremental_additions_batched(
+            store.num_nodes, semiring, values, parent,
+            shared_blocks=tuple(shared_blocks), delta_blocks=delta_blocks,
+            seed_blocks=(delta_blocks[-1],), lane_valid=lane_valid, **kw)
+    shards = _shard_snapshot_axis(mesh, values, parent, delta_blocks,
+                                  lane_valid)
+    t0 = time.perf_counter()
+    shards = [s._replace(shared_blocks=store.replicas(shared_blocks,
+                                                      s.values.device))
+              for s in shards]
+    ShardSeconds.replicas += time.perf_counter() - t0
+    return incremental_additions_sharded(store.num_nodes, semiring, shards,
+                                         **kw)
+
+
 def run_plan_batched(
     store: SnapshotStore,
     plan: PlanNode,
@@ -277,6 +355,7 @@ def run_plan_batched(
     max_iters: int = 10_000,
     cg_split: int = 1,
     track_parents: bool = False,
+    mesh=None,
     seed: str = "instability",
     fused_k: int = 1,
 ) -> WorkSharingRun:
@@ -290,7 +369,9 @@ def run_plan_batched(
     from the apex to its parent and the final parent→child hop Δ, which
     alone seeds the frontier (``seed_blocks``) — matching the sequential
     seeding and its edge-work accounting. Each level's lane count pads to
-    ``lane_bucket(lanes)`` with masked trailing lanes.
+    ``lane_bucket(lanes, data_extent)`` with masked trailing lanes, where
+    ``data_extent`` is the ``mesh``'s (launch/mesh.py) device count or 1;
+    on a mesh every level's lanes split over its devices.
     """
     t_all = time.perf_counter()
     apex_view, base, base_stats = _anchor_base(
@@ -305,14 +386,14 @@ def run_plan_batched(
         results[plan.window[0]] = base.values
 
     apex_window = plan.window
-    n = store.num_nodes
+    data_extent = mesh.shape["data"] if mesh is not None else 1
     prev_nodes = [plan]
     prev_values = base.values[None]
     prev_parent = base.parent[None]
     for level in plan_levels(plan):
         t0 = time.perf_counter()
         lanes = len(level)
-        bucket = lane_bucket(lanes)
+        bucket = lane_bucket(lanes, data_extent)
         lane_layout.append((lanes, bucket))
         hop_stacked = store.delta_stack(
             [(prev_nodes[pi].window, c.window) for pi, c in level],
@@ -330,13 +411,10 @@ def run_plan_batched(
         # lane_valid zeroes them out of the work accounting.
         lane_map = [pi for pi, _ in level] + [0] * (bucket - lanes)
         values, parent = gather_lane_states(prev_values, prev_parent, lane_map)
-        lane_valid = torch.arange(bucket, device=values.device) < lanes
-        res = incremental_additions_batched(
-            n, semiring, values, parent,
-            shared_blocks=tuple(apex_view.blocks), delta_blocks=delta_blocks,
-            max_iters=max_iters, track_parents=track_parents,
-            seed_blocks=(delta_blocks[-1],), lane_valid=lane_valid, seed=seed,
-            fused_k=fused_k)
+        res = _lane_launch(store, mesh, semiring, values, parent,
+                           apex_view.blocks, delta_blocks, lanes,
+                           max_iters=max_iters, track_parents=track_parents,
+                           seed=seed, fused_k=fused_k)
         host_sync(res.values)
         hop_stats.append(StreamStats(time.perf_counter() - t0,
                                      float(res.edge_work.sum()),

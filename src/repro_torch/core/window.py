@@ -10,7 +10,8 @@ for windows spanning ``[lo..hi]`` the tightest is ``T(lo, hi)``
 addition-only hop (``SnapshotStore.slide_block``); the hops are
 independent, so the batched executor stacks them as lanes of ONE
 ``incremental_additions_batched`` launch (``SnapshotStore.slide_stack``,
-lane axis padded to ``lane_bucket(num_windows)`` with masked inert lanes).
+lane axis padded to ``lane_bucket(num_windows, data_extent)`` with masked
+inert lanes, split over the devices of a ``data`` mesh when one is given).
 
 Executor contract (held by tests/test_torch_window.py against the JAX
 package):
@@ -31,8 +32,10 @@ state comes from one incremental hop off k's cached state (the store's
 to running ``run_window_slide_batched`` cold per campaign. The campaign
 partition can be chosen by Δ volume (``optimal_campaigns``), and
 overlapping streams can share one chain of pinned anchor states
-(``AnchorChain``). The reference's ``mesh=`` and ``gated=`` options have
-no counterpart here (one card; the port's kernel masks edge by edge).
+(``AnchorChain``). ``mesh=`` (launch/mesh.py) splits every batched
+launch's lanes over a ``data`` mesh, as in the reference, and makes the
+planner's padding term mesh-aware; the reference's ``gated=`` has no
+counterpart (the port's kernel masks edge by edge).
 """
 
 from __future__ import annotations
@@ -46,7 +49,12 @@ import torch
 
 from repro_torch.core.kickstarter import StreamStats
 from repro_torch.core.snapshots import SnapshotStore, anchor_tag, tightest_cover
-from repro_torch.core.trigrid import _anchor_base, _anchor_view, hop_added_edges
+from repro_torch.core.trigrid import (
+    _anchor_base,
+    _anchor_view,
+    _lane_launch,
+    hop_added_edges,
+)
 from repro_torch.graph.edgeset import lane_bucket
 from repro_torch.graph.engine import (
     QueryState,
@@ -54,7 +62,6 @@ from repro_torch.graph.engine import (
     gather_lane_states,
     host_sync,
     incremental_additions,
-    incremental_additions_batched,
 )
 from repro_torch.graph.semiring import Semiring
 from repro_torch.graph.stability import stable_fraction_milli
@@ -197,11 +204,13 @@ def run_window_slide_batched(
     max_iters: int = 10_000,
     cg_split: int = 1,
     track_parents: bool = False,
+    mesh=None,
     seed: str = "instability",
     fused_k: int = 1,
 ) -> WindowSlideRun:
     """Batched window slide: every slide hop as a lane of ONE stacked
-    launch (``_slide_launch``), the anchor state broadcast to all lanes."""
+    launch (``_slide_launch``), the anchor state broadcast to all lanes;
+    on a ``mesh`` the bucketed window lanes split over its devices."""
     t_all = time.perf_counter()
     windows, anchor = _resolve(store, width, windows, step, start, anchor)
     anchor_view, base, base_stats = _anchor_base(
@@ -212,8 +221,8 @@ def run_window_slide_batched(
     res, bucket = _slide_launch(store, semiring, anchor_view,
                                 extract_state(base), windows, anchor,
                                 max_iters=max_iters,
-                                track_parents=track_parents, seed=seed,
-                                fused_k=fused_k)
+                                track_parents=track_parents, mesh=mesh,
+                                seed=seed, fused_k=fused_k)
     stats, unstable = _launch_stats(t0, res, len(windows))
     results = {wnd: res.values[lane] for lane, wnd in enumerate(windows)}
     return WindowSlideRun(results, anchor, base_stats, [stats],
@@ -227,7 +236,7 @@ def run_window_slide_batched(
 def _slide_launch(store: SnapshotStore, semiring: Semiring, anchor_view,
                   state: "QueryState | list[QueryState]",
                   windows: "list[Window]", anchor: Window,
-                  *, max_iters: int, track_parents: bool,
+                  *, max_iters: int, track_parents: bool, mesh=None,
                   lane_map: "list[int] | None" = None,
                   seed: str = "instability", fused_k: int = 1):
     """ONE stacked launch re-converging every window from anchor state(s).
@@ -237,9 +246,12 @@ def _slide_launch(store: SnapshotStore, semiring: Semiring, anchor_view,
     naming the state that seeds window lane ``k``. Masked padding lanes
     ride along as inert copies of the first mapped state: their Δ is
     all-sentinel and ``lane_valid`` zeroes them out of the work
-    accounting. Returns ``(FixpointResult, bucket)``.
+    accounting. The lanes bucket to ``lane_bucket(windows, data_extent)``
+    and, on a ``mesh``, split over its devices; the result is gathered
+    onto the store's device. Returns ``(FixpointResult, bucket)``.
     """
-    bucket = lane_bucket(len(windows), 1)
+    data_extent = mesh.shape["data"] if mesh is not None else 1
+    bucket = lane_bucket(len(windows), data_extent)
     stacked = store.slide_stack(windows, anchor, num_lanes=bucket)
     if lane_map is None:
         states, lane_map = [state], [0] * len(windows)
@@ -252,13 +264,10 @@ def _slide_launch(store: SnapshotStore, semiring: Semiring, anchor_view,
     values, parent = gather_lane_states(
         torch.stack([s.values for s in states]),
         torch.stack([s.parent for s in states]), lane_map)
-    lane_valid = torch.arange(bucket, device=values.device) < len(windows)
-    res = incremental_additions_batched(
-        store.num_nodes, semiring, values, parent,
-        shared_blocks=tuple(anchor_view.blocks), delta_blocks=(stacked,),
-        max_iters=max_iters, track_parents=track_parents,
-        seed_blocks=(stacked,), lane_valid=lane_valid, seed=seed,
-        fused_k=fused_k)
+    res = _lane_launch(store, mesh, semiring, values, parent,
+                       anchor_view.blocks, (stacked,), len(windows),
+                       max_iters=max_iters, track_parents=track_parents,
+                       seed=seed, fused_k=fused_k)
     host_sync(res.values)
     return res, bucket
 
@@ -763,6 +772,7 @@ def run_window_stream_batched(
     max_iters: int = 10_000,
     cg_split: int = 1,
     track_parents: bool = False,
+    mesh=None,
     seed: str = "instability",
     stable_milli: int = 0,
     cost_model=None,
@@ -775,8 +785,10 @@ def run_window_stream_batched(
     into campaigns of ``campaign_width`` windows (default 4; a
     ``WindowStream`` carries its own width) or, with ``"auto"``, the
     ``optimal_campaigns`` partition capped at ``lane_budget`` windows
-    (priced with the ``stable_milli`` hint, or by ``cost_model``), and runs
-    each campaign as ONE masked pow2-lane launch (``_slide_launch``).
+    (priced with the ``stable_milli`` hint, or by ``cost_model``, its
+    padding term at the ``mesh``'s data extent), and runs each campaign as
+    ONE masked pow2-lane launch (``_slide_launch``, split over the
+    ``mesh``'s devices when one is given).
 
     Campaign k anchors at ``(lo_k, stream_hi)``; its state is a cache hit,
     an incremental hop off the tightest cached cover, or a rebuild.
@@ -818,9 +830,10 @@ def run_window_stream_batched(
                                time.perf_counter() - t_all, 0, 0, [])
     plan = None
     if campaign_width == CAMPAIGN_AUTO:
-        plan = optimal_campaigns(store, windows, lane_budget=lane_budget,
-                                 stable_milli=stable_milli,
-                                 cost_model=cost_model)
+        plan = optimal_campaigns(
+            store, windows, lane_budget=lane_budget,
+            data_extent=mesh.shape["data"] if mesh is not None else 1,
+            stable_milli=stable_milli, cost_model=cost_model)
         campaigns = plan.campaigns
     else:
         campaigns = stream_campaigns(windows, campaign_width)
@@ -849,8 +862,8 @@ def run_window_stream_batched(
         t0 = time.perf_counter()
         res, bucket = _slide_launch(store, semiring, anchor_view, state,
                                     campaign, anchor, max_iters=max_iters,
-                                    track_parents=track_parents, seed=seed,
-                                    fused_k=fused_k)
+                                    track_parents=track_parents, mesh=mesh,
+                                    seed=seed, fused_k=fused_k)
         launch_stats, unstable = _launch_stats(t0, res, len(campaign))
         hop_stats.append(launch_stats)
         lane_layout.append((len(campaign), bucket))

@@ -34,7 +34,8 @@ chunk, chunks added to the running total, seed work added last.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import time
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -169,6 +170,49 @@ def relax_sweep_fused(
     return tuple(t[0] for t in out)
 
 
+def _live_flags(lives: "list[torch.Tensor]") -> "list[bool]":
+    """Whether each shard has a lane still running: ONE host read for all
+    shards (a shard's flag is copied to the first shard's device first),
+    so no shard's device waits for another's read."""
+    if len(lives) == 1:
+        return [bool(lives[0].any())]
+    dev = lives[0].device
+    return torch.stack([live.any().to(dev) for live in lives]).tolist()
+
+
+def _fixpoint_shards(semiring: Semiring, num_nodes: int, max_iters: int,
+                     shards, track_parents: bool = True,
+                     fused_k: int = 1) -> "list[FixpointResult]":
+    """``_fixpoint`` over lane shards: ``shards`` is a sequence of
+    ``(values, parent, frontier, blocks)``, each ``[S_d, N]`` with its
+    blocks on its own device. Each round enqueues one fused chunk on every
+    shard that still has a running lane, then reads all shards' flags at
+    once. A shard whose lanes have all stopped would run 0 sweeps and add
+    +0.0 work, so it is skipped; every lane's values, parents, iterations
+    and work equal an unsharded run's."""
+    states = []
+    for values, parent, frontier, blocks in shards:
+        lanes = values.shape[0]
+        it = torch.zeros(lanes, dtype=torch.int32, device=values.device)
+        work = torch.zeros(lanes, dtype=torch.float32, device=values.device)
+        states.append([values, parent, frontier, it, work, tuple(blocks)])
+    flags = _live_flags([s[2].any(1) & (s[3] < max_iters) for s in states])
+    while any(flags):
+        for state, running in zip(states, flags):
+            if not running:
+                continue
+            values, parent, frontier, it, work, blocks = state
+            cap = torch.clamp(max_iters - it, max=fused_k)
+            values, parent, frontier, sweeps, dw = relax_sweep_fused(
+                semiring, num_nodes, values, parent, frontier, blocks,
+                k=fused_k, allowed=cap, track_parents=track_parents)
+            # lanes that did not run add 0 sweeps and +0.0 work: unchanged
+            state[:5] = values, parent, frontier, it + sweeps, work + dw
+        flags = _live_flags([s[2].any(1) & (s[3] < max_iters)
+                             for s in states])
+    return [FixpointResult(s[0], s[1], s[3], s[4]) for s in states]
+
+
 def _fixpoint(semiring: Semiring, num_nodes: int, max_iters: int,
               values, parent, frontier, blocks: Blocks,
               track_parents: bool = True, fused_k: int = 1) -> FixpointResult:
@@ -180,22 +224,13 @@ def _fixpoint(semiring: Semiring, num_nodes: int, max_iters: int,
     if not batched:
         values, parent, frontier = (t.unsqueeze(0)
                                     for t in (values, parent, frontier))
-    lanes = values.shape[0]
-    it = torch.zeros(lanes, dtype=torch.int32, device=values.device)
-    work = torch.zeros(lanes, dtype=torch.float32, device=values.device)
-    live = frontier.any(1) & (it < max_iters)
-    while bool(live.any()):
-        cap = torch.clamp(max_iters - it, max=fused_k)
-        values, parent, frontier, sweeps, dw = relax_sweep_fused(
-            semiring, num_nodes, values, parent, frontier, blocks, k=fused_k,
-            allowed=cap, track_parents=track_parents)
-        # lanes that did not run add 0 sweeps and +0.0 work: unchanged
-        it = it + sweeps
-        work = work + dw
-        live = frontier.any(1) & (it < max_iters)
+    res, = _fixpoint_shards(semiring, num_nodes, max_iters,
+                            [(values, parent, frontier, blocks)],
+                            track_parents, fused_k)
     if batched:
-        return FixpointResult(values, parent, it, work)
-    return FixpointResult(values[0], parent[0], it[0], work[0])
+        return res
+    return FixpointResult(res.values[0], res.parent[0], res.iterations[0],
+                          res.edge_work[0])
 
 
 def run_to_fixpoint(
@@ -283,6 +318,70 @@ def gather_lane_states(values: torch.Tensor, parent: torch.Tensor,
     return values[idx], parent[idx]
 
 
+class LaneShard(NamedTuple):
+    """One device's contiguous slice of a batched launch's lane axis
+    (``core/trigrid.py`` ``_shard_snapshot_axis``): its state rows, its
+    rows of every stacked Δ group, its lane mask and, once the executor
+    has placed them, the launch's shared blocks on its device."""
+
+    values: torch.Tensor          # [S_d, N] on the shard's device
+    parent: torch.Tensor          # [S_d, N]
+    delta_blocks: Blocks          # each [S_d, E]
+    lane_valid: torch.Tensor      # [S_d] bool; False = padding lane
+    shared_blocks: Blocks = ()    # broadcast blocks on the shard's device
+
+
+class ShardSeconds:
+    """Host seconds the sharded launches spent splitting the lane axis
+    (``split``), placing shared blocks on the mesh's devices
+    (``replicas``) and gathering results (``gather``); like the kernels'
+    launch counts, callers set the fields to 0 and read them after."""
+
+    split = 0.0
+    replicas = 0.0
+    gather = 0.0
+
+
+def _incremental_shards(semiring, num_nodes, max_iters, shards,
+                        track_parents, seed, fused_k) -> FixpointResult:
+    """Seed, run and gather lane shards, each ``(values, parent, blocks,
+    seed_blocks, lane_valid)`` on its own device; the result lies on the
+    first shard's device, lanes in shard order."""
+    from repro_torch.graph.stability import seed_state
+    seeded = [seed_state(semiring, num_nodes, values, parent, seeds,
+                         mode=seed, track_parents=track_parents)
+              for values, parent, _, seeds, _ in shards]
+    runs = _fixpoint_shards(
+        semiring, num_nodes, max_iters,
+        [(sd.values, sd.parent, sd.frontier, blocks)
+         for sd, (_, _, blocks, _, _) in zip(seeded, shards)],
+        track_parents, fused_k)
+    t0 = time.perf_counter()
+    dev = shards[0][0].device
+
+    def gather(parts):
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat([t.to(dev) for t in parts])
+
+    values = gather([r.values for r in runs])
+    parent = gather([r.parent for r in runs])
+    iterations = gather([r.iterations for r in runs]) + 1
+    work = gather([r.edge_work for r in runs]) \
+        + gather([sd.seed_work for sd in seeded])
+    unstable = gather([sd.unstable for sd in seeded])
+    if len(shards) > 1:
+        ShardSeconds.gather += time.perf_counter() - t0
+    if shards[0][4] is None:
+        return FixpointResult(values, parent, iterations, work, unstable)
+    lane_valid = gather([s[4] for s in shards])
+    return FixpointResult(
+        values, parent,
+        torch.where(lane_valid, iterations, 0),
+        torch.where(lane_valid, work, 0.0),
+        torch.where(lane_valid, unstable, 0))
+
+
 def batched_incremental(semiring, num_nodes, max_iters,
                         values, parent, shared_blocks, delta_blocks,
                         track_parents=True, seed_blocks=None,
@@ -297,23 +396,11 @@ def batched_incremental(semiring, num_nodes, max_iters,
     valid) marks padding lanes; their ``iterations``/``edge_work``/
     ``unstable`` are zeroed.
     """
-    from repro_torch.graph.stability import seed_state
     seeds = delta_blocks if seed_blocks is None else seed_blocks
-    seeded = seed_state(semiring, num_nodes, values, parent, seeds,
-                        mode=seed, track_parents=track_parents)
-    res = _fixpoint(semiring, num_nodes, max_iters, seeded.values,
-                    seeded.parent, seeded.frontier,
-                    tuple(shared_blocks) + tuple(delta_blocks),
-                    track_parents=track_parents, fused_k=fused_k)
-    res = FixpointResult(res.values, res.parent, res.iterations + 1,
-                         res.edge_work + seeded.seed_work, seeded.unstable)
-    if lane_valid is None:
-        return res
-    return FixpointResult(
-        res.values, res.parent,
-        torch.where(lane_valid, res.iterations, 0),
-        torch.where(lane_valid, res.edge_work, 0.0),
-        torch.where(lane_valid, res.unstable, 0))
+    return _incremental_shards(
+        semiring, num_nodes, max_iters,
+        [(values, parent, tuple(shared_blocks) + tuple(delta_blocks),
+          tuple(seeds), lane_valid)], track_parents, seed, fused_k)
 
 
 def incremental_additions_batched(
@@ -341,3 +428,28 @@ def incremental_additions_batched(
                                None if seed_blocks is None
                                else tuple(seed_blocks), lane_valid, seed,
                                fused_k)
+
+
+def incremental_additions_sharded(
+    num_nodes: int,
+    semiring: Semiring,
+    shards: "Sequence[LaneShard]",
+    max_iters: int = 10_000,
+    track_parents: bool = True,
+    seed: str = "instability",
+    fused_k: int = 1,
+) -> FixpointResult:
+    """:func:`incremental_additions_batched` with its lane axis split over
+    devices: each :class:`LaneShard` relaxes its shared and Δ blocks and
+    seeds its frontier from its last Δ group (the executors' hop Δ). Every
+    shard is seeded, then each chunk runs on every shard before one host
+    read of all shards' flags; the shards are gathered in lane order onto
+    the first shard's device. Each lane equals the unsharded launch's bit
+    for bit (values, parents, iterations, work, unstable): they are
+    per-lane quantities, so the split cannot change them.
+    """
+    return _incremental_shards(
+        semiring, num_nodes, max_iters,
+        [(s.values, s.parent, tuple(s.shared_blocks) + tuple(s.delta_blocks),
+          (s.delta_blocks[-1],), s.lane_valid) for s in shards],
+        track_parents, seed, fused_k)

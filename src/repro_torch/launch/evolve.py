@@ -32,6 +32,13 @@ common graph (each checked by one unmasked sweep), the batched slide
 equals the sequential one bit for bit, and the stream equals the cold
 campaigns bit for bit.
 
+``--shard`` splits the batched executors' lane axis (snapshots for
+dhb/wsb, windows for the batched slide, the stream and the cold
+campaigns) over a 1-D ``data`` mesh (launch/mesh.py): every local card
+with ``--device cuda``, a one-device mesh with ``--device cpu``. Each
+launch's lanes bucket to a count the mesh divides, and a ``shard[...]``
+line per executor reports the placement.
+
 ``--calibrate`` (with ``--stream``) fits a measured ``SweepCostModel``
 (core/costmodel.py) from timed sweeps at two edge scales, prints its
 per-edge and per-sweep prices, and hands it to the timed stream's
@@ -77,6 +84,7 @@ from repro_torch.graph import EdgeView, make_evolving_sequence, run_to_fixpoint
 from repro_torch.graph.semiring import ALL_SEMIRINGS
 from repro_torch.kernels import edge_relax, relax_multi
 from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR
+from repro_torch.launch.mesh import make_snapshot_mesh
 
 MODES = ("ks", "dh", "dhb", "ws", "wsb")
 
@@ -125,6 +133,26 @@ def _ingest_store(seq, device) -> SnapshotStore:
     return store
 
 
+def _shard_report(mesh, label: str,
+                  lane_layout: "list[tuple[int, int]]") -> None:
+    """Per-launch lane placement, from the (lanes, bucket) pairs the batched
+    executor recorded for what it actually launched: every lane axis buckets
+    to a pow2 count divisible by the data axis, so each launch shards — the
+    padding overhead is the price of never running replicated."""
+    extent = mesh.shape["data"]
+    if not lane_layout:
+        print(f"[evolve]   shard[{label}]: no batched launches "
+              "(single-snapshot leaf plan)")
+        return
+    lanes = [c for c, _ in lane_layout]
+    buckets = [b for _, b in lane_layout]
+    pad = sum(buckets) / sum(lanes) - 1
+    print(f"[evolve]   shard[{label}]: lanes {lanes} -> buckets "
+          f"{buckets} over {extent} devices "
+          f"({[b // extent for b in buckets]} lanes/device, "
+          f"padding overhead {pad:.0%})")
+
+
 def _launch_counts() -> dict:
     """The relax kernels' launch counters (they count CUDA launches only)."""
     return {"edge_relax": edge_relax.launches,
@@ -133,8 +161,9 @@ def _launch_counts() -> dict:
 
 def main(argv=None) -> dict:
     """Run every mode; returns ``{"wall_s": {mode: seconds}, "results":
-    {mode: [values per snapshot]}, "verified": bool}``, and with
-    ``--window`` also ``"windows"`` (see :func:`_run_windows`)."""
+    {mode: [values per snapshot]}, "verified": bool, "lane_layout":
+    {"dhb"/"wsb": (lanes, bucket) per launch}}``, and with ``--window``
+    also ``"windows"`` (see :func:`_run_windows`)."""
     p = argparse.ArgumentParser()
     p.add_argument("--nodes", type=int, default=20_000)
     p.add_argument("--edges", type=int, default=200_000)
@@ -147,6 +176,11 @@ def main(argv=None) -> dict:
     p.add_argument("--device", default="cuda",
                    help="device for edge blocks and query state (default "
                         "cuda; cpu runs the plain PyTorch kernel versions)")
+    p.add_argument("--shard", action="store_true",
+                   help="shard the batched executors' lane axis (snapshots, "
+                        "or windows with --window-batch/--stream) over a 1-D "
+                        "data mesh of every local card (one device with "
+                        "--device cpu)")
     p.add_argument("--window", type=int, default=None, metavar="W",
                    help="also run the sliding-window executor: slide a "
                         "width-W window over the sequence, answering every "
@@ -196,6 +230,9 @@ def main(argv=None) -> dict:
         _build.load_library()
         print(f"[evolve] kernels ready in {time.perf_counter() - t0:.2f}s "
               f"on {torch.cuda.get_device_name(device)}")
+    mesh = None
+    if args.shard:
+        mesh = make_snapshot_mesh([device] if device.type == "cpu" else None)
 
     sr = ALL_SEMIRINGS[args.alg]
     print(f"[evolve] generating {args.snapshots} snapshots of "
@@ -217,9 +254,11 @@ def main(argv=None) -> dict:
     print(f"[evolve] Direct-Hop:            {dh.wall_s:.2f}s  "
           f"speedup {t_ks / dh.wall_s:.2f}x")
 
-    dhb = run_direct_hop_batched(store, sr, args.source)
+    dhb = run_direct_hop_batched(store, sr, args.source, mesh=mesh)
     print(f"[evolve] Direct-Hop (batched):  {dhb.wall_s:.2f}s  "
           f"speedup {t_ks / dhb.wall_s:.2f}x  (lanes {dhb.lane_layout})")
+    if mesh is not None:
+        _shard_report(mesh, "dhb", dhb.lane_layout)
 
     t0 = time.perf_counter()
     plan = optimal_plan(store)
@@ -231,20 +270,24 @@ def main(argv=None) -> dict:
           f"{plan_added_edges(store, direct_hop_plan(n=args.snapshots))}; "
           f"plan DP {t_plan:.2f}s)")
 
-    wsb = run_plan_batched(store, plan, sr, args.source)
+    wsb = run_plan_batched(store, plan, sr, args.source, mesh=mesh)
     print(f"[evolve] Work-Sharing (batched):{wsb.wall_s:.2f}s  "
           f"speedup {t_ks / wsb.wall_s:.2f}x  "
           f"({len(wsb.hop_stats)} level launches vs "
           f"{len(ws.hop_stats)} sequential hops)")
+    if mesh is not None:
+        _shard_report(mesh, "wsb", wsb.lane_layout)
 
     results = {"ks": ks_res, "dh": dh.results, "dhb": dhb.results,
                "ws": [ws.results[i] for i in range(args.snapshots)],
                "wsb": [wsb.results[i] for i in range(args.snapshots)]}
     summary = {"wall_s": {"ks": t_ks, "dh": dh.wall_s, "dhb": dhb.wall_s,
                           "ws": ws.wall_s, "wsb": wsb.wall_s},
-               "results": results, "verified": False}
+               "results": results, "verified": False,
+               "lane_layout": {"dhb": dhb.lane_layout,
+                               "wsb": wsb.lane_layout}}
     if args.window is not None:
-        summary["windows"] = _run_windows(store, sr, args)
+        summary["windows"] = _run_windows(store, sr, args, mesh)
     if args.verify:
         for i in range(args.snapshots):
             view = store.snapshot_view(i)
@@ -262,13 +305,14 @@ def main(argv=None) -> dict:
     return summary
 
 
-def _run_windows(store, sr, args) -> dict:
+def _run_windows(store, sr, args, mesh) -> dict:
     """The window section: a sequential slide, with ``--window-batch`` a
     batched slide, with ``--stream`` a warm-up stream, the timed stream
     (its planner hinted with the warm-up's stable fraction) and the cold
     per-campaign baseline (with ``--calibrate``, planned under the fitted
-    cost model). Returns the runs (``slide``, ``batch``, ``stream``,
-    ``cold``; None where not run), the ``cost_model``, their wall seconds
+    cost model); every batched run on ``mesh`` when given. Returns the
+    runs (``slide``, ``batch``, ``stream``, ``cold``; None where not
+    run), the ``cost_model``, their wall seconds
     (``wall_s``) and the relax kernels' launches made here and in the
     window verify (``launches``)."""
     before = _launch_counts()
@@ -283,11 +327,13 @@ def _run_windows(store, sr, args) -> dict:
            "cold": None, "cost_model": None, "wall_s": {"slide": sl.wall_s}}
     if args.window_batch:
         slb = run_window_slide_batched(store, sr, args.source, args.window,
-                                       step=args.window_step,
+                                       step=args.window_step, mesh=mesh,
                                        fused_k=args.fused_k)
         print(f"[evolve] Window slide (batch): {slb.wall_s:.2f}s  "
               f"speedup {sl.wall_s / slb.wall_s:.2f}x  "
               f"(1 stacked launch vs {len(sl.hop_stats)} hops)")
+        if mesh is not None:
+            _shard_report(mesh, "windows", slb.lane_layout)
         out["batch"], out["wall_s"]["batch"] = slb, slb.wall_s
     if args.stream:
         # Warm-up: builds the blocks both paths touch; the anchor states
@@ -296,7 +342,7 @@ def _run_windows(store, sr, args) -> dict:
         warm = run_window_stream_batched(store, sr, args.source, args.window,
                                          step=args.window_step,
                                          campaign_width=args.campaign_width,
-                                         fused_k=args.fused_k)
+                                         mesh=mesh, fused_k=args.fused_k)
         store.release(("AS",))
         cost_model = None
         if args.calibrate:
@@ -313,12 +359,13 @@ def _run_windows(store, sr, args) -> dict:
                                         step=args.window_step,
                                         campaign_width=args.campaign_width,
                                         stable_milli=warm.stable_milli,
-                                        cost_model=cost_model,
+                                        mesh=mesh, cost_model=cost_model,
                                         fused_k=args.fused_k)
         # the cold baseline rebuilds its anchor per campaign
         t0 = time.perf_counter()
         cold = [run_window_slide_batched(store, sr, args.source, windows=c,
-                                         anchor=a, fused_k=args.fused_k)
+                                         anchor=a, mesh=mesh,
+                                         fused_k=args.fused_k)
                 for c, a in zip(stm.campaigns, stm.anchors)]
         t_cold = time.perf_counter() - t0
         shape = (f"widths {[len(c) for c in stm.campaigns]}"
@@ -344,6 +391,8 @@ def _run_windows(store, sr, args) -> dict:
                   f"{stm.plan.anchor_edges} + pad "
                   f"{stm.plan.padding_edges} = {stm.plan.total_edges} "
                   f"{unit} (priced at {pricing})")
+        if mesh is not None:
+            _shard_report(mesh, "stream", stm.lane_layout)
         out["stream"], out["cold"] = stm, cold
         out["cost_model"] = cost_model
         out["wall_s"].update(stream=stm.wall_s, cold=t_cold)

@@ -1,0 +1,73 @@
+"""The snapshot mesh: a 1-D ``data`` axis of devices (counterpart of
+``repro.launch.mesh.make_snapshot_mesh``).
+
+The batched CommonGraph executors (``run_direct_hop_batched``,
+``run_plan_batched``, the batched window slide, the stream and the query
+service) split their lane (snapshot or window) axis into contiguous
+slices over this axis, one per device (``core/trigrid.py``
+``_shard_snapshot_axis``): the paper's "breaks the sequential dependency"
+parallelism mapped onto cards.
+
+The port's mesh is an explicit tuple of ``torch.device`` s and may name a
+device more than once: four slices on one card (or on the CPU) run the
+same split as four cards, which is how the tests and ``chip_smoke.py``
+exercise it on one device. Its first device must be the store's: results
+are gathered there.
+
+The reference's production meshes (``make_production_mesh``,
+``make_local_mesh``) serve its dry run and model cells; they wait for
+ROADMAP A3/A10.4.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+def _canonical(device) -> torch.device:
+    """``device`` as tensors report it: a CUDA device without an index is
+    the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class SnapshotMesh:
+    """A 1-D ``data`` mesh over ``devices`` (repeats allowed); ``shape``
+    reads like the reference's ``mesh.shape["data"]``."""
+
+    devices: "tuple[torch.device, ...]"
+    axis_names: "tuple[str, ...]" = ("data",)
+
+    def __post_init__(self):
+        devices = tuple(_canonical(d) for d in self.devices)
+        if not devices:
+            raise ValueError("a snapshot mesh needs at least one device")
+        kinds = {d.type for d in devices}
+        if len(kinds) > 1:
+            raise ValueError(f"a snapshot mesh spans one kind of device, "
+                             f"got {sorted(kinds)}")
+        object.__setattr__(self, "devices", devices)
+
+    @property
+    def shape(self) -> "dict[str, int]":
+        """``{"data": number of devices}``."""
+        return {"data": len(self.devices)}
+
+
+def make_snapshot_mesh(devices=None) -> SnapshotMesh:
+    """1-D ``data`` mesh over ``devices``, by default every local card
+    (``cuda:0`` … ``cuda:{n-1}``). Without a card and without ``devices``
+    it raises: there is no CPU fallback."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError("make_snapshot_mesh() spans the local cards "
+                               "and found none; pass devices= to build a "
+                               "mesh of other devices")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    return SnapshotMesh(tuple(devices))

@@ -77,12 +77,13 @@ def generate_load(num_snapshots, *, num_clients=6, seed=0,
 
 
 def run_service_load(store, specs, schedule, *, lane_budget=8,
-                     turn_budget=None):
+                     turn_budget=None, mesh=None):
     """Drive a :class:`QueryService` with an open-loop load plan: register
     one client per spec, then per tick admit that tick's bursts and run ONE
-    turn, then drain. Returns ``(service, clients)``."""
+    turn, then drain. ``mesh`` splits every launch's lanes over a ``data``
+    mesh (launch/mesh.py). Returns ``(service, clients)``."""
     service = QueryService(store, lane_budget=lane_budget,
-                           turn_budget=turn_budget)
+                           turn_budget=turn_budget, mesh=mesh)
     clients = [service.register(ALL_SEMIRINGS[s["alg"]], s["source"],
                                 campaign_width=s["campaign_width"],
                                 name=s["name"])

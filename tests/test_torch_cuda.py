@@ -33,6 +33,10 @@ from _torch_inputs import (  # noqa: E402
 )
 from repro_torch.core import (  # noqa: E402
     EdgeLog,
+    direct_hop_plan,
+    optimal_plan,
+    run_direct_hop_batched,
+    run_plan_batched,
     LiveSequence,
     LiveWindowFeed,
     SnapshotStore,
@@ -50,6 +54,7 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core.window import _stream_qkey  # noqa: E402
 from repro_torch.graph import make_evolving_sequence  # noqa: E402
+from repro_torch.graph.edgeset import lane_bucket  # noqa: E402
 from repro_torch.graph.semiring import ALL_SEMIRINGS  # noqa: E402
 from repro_torch.kernels import (  # noqa: E402
     edge_relax,
@@ -65,6 +70,7 @@ from repro_torch.kernels.segment_reduce import (  # noqa: E402
     segment_reduce_ref,
 )
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.mesh import make_snapshot_mesh  # noqa: E402
 from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR, edge_relax_ref  # noqa: E402
 from repro_torch.kernels.edge_relax_multi.ref import relax_multi_ref  # noqa: E402
 
@@ -617,3 +623,152 @@ def test_cuda_calibrate(cuda_device):
     cal = optimal_campaigns(store, windows, cost_model=model)
     assert cal.total_edges <= campaign_volume(
         store, raw.campaigns, cost_model=model).total_edges
+
+
+# -- lane sharding over a data mesh ------------------------------------------
+#
+# The CPU's tests/test_torch_shard.py cases on the card: a mesh naming the
+# card four times, and a mesh of every local card where there are two or
+# more. Each meshed run equals the unmeshed run on the card bit for bit.
+
+MESHES = ["repeat", "cards"]
+
+
+def _mesh(kind, cuda_device):
+    if kind == "repeat":
+        return make_snapshot_mesh([cuda_device] * 4)
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    return make_snapshot_mesh()
+
+
+def _card_store(cuda_device, snaps=8, seed=3):
+    return SnapshotStore(make_evolving_sequence(3000, 24_000, snaps, 500,
+                                                seed=seed),
+                         granule=512, device=cuda_device)
+
+
+def _same_runs(got, want, keys):
+    assert [(h.edge_work, h.sweeps) for h in got.hop_stats] == \
+        [(h.edge_work, h.sweeps) for h in want.hop_stats]
+    assert got.stable_milli == want.stable_milli
+    for key in keys:
+        assert got.results[key].device == want.results[key].device
+        _same_bits(got.results[key].cpu(), want.results[key].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("name", SEMIRINGS)
+@pytest.mark.parametrize("kind", MESHES)
+def test_cuda_batched_executors_on_mesh(cuda_device, kind, name, track):
+    """``run_direct_hop_batched`` and ``run_plan_batched`` (optimal and
+    direct-hop plans) on a mesh equal the unmeshed runs on the card bit
+    for bit; every level buckets to ``lane_bucket(lanes, extent)`` and the
+    meshed runs launch relax_multi."""
+    mesh = _mesh(kind, cuda_device)
+    extent = mesh.shape["data"]
+    store = _card_store(cuda_device)
+    sr = ALL_SEMIRINGS[name]
+    plain = run_direct_hop_batched(store, sr, 0, track_parents=track)
+    before = relax_multi.launches
+    got = run_direct_hop_batched(store, sr, 0, track_parents=track,
+                                 mesh=mesh)
+    assert relax_multi.launches > before
+    assert got.lane_layout == [(8, lane_bucket(8, extent))]
+    for i in range(8):
+        _same_bits(got.results[i].cpu(), plain.results[i].cpu())
+    for plan in (optimal_plan(store), direct_hop_plan(n=8)):
+        plain = run_plan_batched(store, plan, sr, 0, track_parents=track)
+        got = run_plan_batched(store, plan, sr, 0, track_parents=track,
+                               mesh=mesh)
+        assert got.lane_layout == [(lanes, lane_bucket(lanes, extent))
+                                   for lanes, _ in plain.lane_layout]
+        _same_runs(got, plain, range(8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MESHES)
+def test_cuda_window_slide_and_stream_on_mesh(cuda_device, kind):
+    """The batched slide (3 and 5 windows) and a stream of campaigns of 2
+    on a mesh equal the unmeshed runs on the card bit for bit, parents
+    tracked: values, per-launch work and sweeps, anchor events."""
+    mesh = _mesh(kind, cuda_device)
+    extent = mesh.shape["data"]
+    store = _card_store(cuda_device)
+    sr = ALL_SEMIRINGS["sssp"]
+    for width in (4, 6):
+        plain = run_window_slide_batched(store, sr, 0, width,
+                                         track_parents=True)
+        got = run_window_slide_batched(store, sr, 0, width,
+                                       track_parents=True, mesh=mesh)
+        lanes = 9 - width
+        assert got.lane_layout == [(lanes, lane_bucket(lanes, extent))]
+        _same_runs(got, plain, plain.results)
+    plain = run_window_stream_batched(store, sr, 0, 3, campaign_width=2,
+                                      track_parents=True)
+    store.release(("AS",))
+    got = run_window_stream_batched(store, sr, 0, 3, campaign_width=2,
+                                    track_parents=True, mesh=mesh)
+    assert got.anchor_events == plain.anchor_events
+    assert got.lane_layout == [(lanes, lane_bucket(lanes, extent))
+                               for lanes, _ in plain.lane_layout]
+    _same_runs(got, plain, plain.results)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MESHES)
+def test_cuda_auto_campaigns_on_mesh(cuda_device, kind):
+    """``campaign_width="auto"`` on a mesh plans at its data extent (the
+    plan equals ``optimal_campaigns(..., data_extent=extent)``) and every
+    window equals the unmeshed auto stream on the card bit for bit."""
+    mesh = _mesh(kind, cuda_device)
+    extent = mesh.shape["data"]
+    store = _card_store(cuda_device)
+    sr = ALL_SEMIRINGS["sssp"]
+    windows = slide_windows(8, 3)
+    plain = run_window_stream_batched(store, sr, 0, 3,
+                                      campaign_width="auto")
+    store.release(("AS",))
+    got = run_window_stream_batched(store, sr, 0, 3, campaign_width="auto",
+                                    mesh=mesh)
+    want = optimal_campaigns(store, windows, data_extent=extent)
+    assert got.plan.campaigns == want.campaigns
+    assert got.plan.total_edges == want.total_edges
+    assert got.plan.data_extent == extent
+    for wnd in windows:
+        _same_bits(got.results[wnd].cpu(), plain.results[wnd].cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MESHES)
+def test_cuda_service_load_on_mesh(cuda_device, kind):
+    """A seeded service load (4 clients, seed 7) on a mesh equals the
+    unmeshed load on the card: every count but the padding, every launch
+    record but its bucket (``lane_bucket(lanes, extent)``) and every
+    client's results bit for bit, on the store's card."""
+    mesh = _mesh(kind, cuda_device)
+    extent = mesh.shape["data"]
+    seq = make_evolving_sequence(3000, 24_000, 6, 500, seed=7)
+    specs, schedule = serve.generate_load(6, num_clients=4, seed=7)
+    runs = []
+    for m in (None, mesh):
+        store = SnapshotStore(seq, granule=512, device=cuda_device)
+        runs.append(serve.run_service_load(store, specs, schedule, mesh=m))
+    (plain, plain_clients), (svc, clients) = runs
+    m, pm = svc.metrics(), plain.metrics()
+    for field in ("admitted", "completed", "turns", "launches", "lanes",
+                  "anchor_rebuilds", "anchor_hops", "anchor_hits",
+                  "edge_work", "unstable_vertex_lanes"):
+        assert getattr(m, field) == getattr(pm, field), field
+    assert [(r.group, r.anchor, r.windows, r.clients, r.anchor_events,
+             r.edge_work, r.iterations) for r in svc.launch_log] == \
+        [(r.group, r.anchor, r.windows, r.clients, r.anchor_events,
+          r.edge_work, r.iterations) for r in plain.launch_log]
+    assert all(r.bucket == lane_bucket(r.lanes, extent)
+               for r in svc.launch_log)
+    for got, want in zip(clients, plain_clients):
+        assert list(got.results) == list(want.results)
+        for wnd, vals in got.results.items():
+            assert vals.device == want.results[wnd].device
+            _same_bits(vals.cpu(), want.results[wnd].cpu())
