@@ -62,6 +62,23 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    against unmeshed (every count, every launch record but its bucket,
    every result). Prints per executor the walls, relax launches,
    set-algebra seconds and the split, replica and gather seconds;
+3d. the paper's engine at production scale (``configs/commongraph.py``):
+   ``window_32x`` (32 snapshots, 2^20 vertices, 2^24 common-graph edges,
+   2^18 Δ edges each) and ``window_64x`` (64, 2^23, 2^26, 2^20), each at
+   its full published size, the counts set to 0 just before each shape's
+   first evolve step and read after its checks: generation and
+   start-state seconds, the cell's step (SSSP, ``track_parents=False``,
+   ``max_iters`` 64) cold and warm with its relax_multi launches and
+   device ms, the peak device memory beside its reckoning, per-lane
+   iterations and edge_work. Every valid lane is certified a fixpoint by
+   one unmasked ``edge_relax`` sweep over the common graph and one over
+   its Δ row; a lane stopped by ``max_iters`` short of its fixpoint fails
+   the phase; padding lanes report 0 iterations and 0.0 work; lanes 0,
+   s // 2 and s - 1 equal their from-scratch fixpoints, and the cell on a
+   mesh naming the card four times (and on every card where there are
+   two or more) equals the unmeshed step, bit for bit; then relax_multi
+   at the cell's seed and sweep shapes against its plain version (4
+   lanes at a time), timed beside its bytes bound;
 4. the other four semirings through all five modes and the window
    section (width 3, ``--campaign-width auto`` priced by ``--calibrate``,
    ``--fused-k 4``) with ``--verify`` at 2^18 vertices and 2^20 edges,
@@ -186,6 +203,10 @@ FIRST_LOSS_TOL, FIRST_GNORM_TOL, STEP_LOSS_TOL = 1e-5, 1e-4, 2e-2
 # reference's own retrieval check, tests/test_models.py); training
 # replays at ``FIRST_LOSS_TOL``/``STEP_LOSS_TOL``.
 LOGIT_TOL, RETRIEVAL_TOL = 1e-5, 1e-4
+# phase 3d: the CommonGraph cell's shapes (configs/commongraph.py), each at
+# its full published size, and the cell's max_iters (the reference's 64)
+COMMONGRAPH_SHAPES_RUN = ("window_32x", "window_64x")
+CELL_MAX_ITERS = 64
 
 
 def fail(msg: str) -> None:
@@ -1642,6 +1663,340 @@ def shard_phase(store, device) -> dict:
                 wall_s=time.perf_counter() - t_phase)
 
 
+def relax_device_ms(fn):
+    """Run ``fn`` with CUDA events around every ``engine.relax_multi`` call
+    (on the call's device and stream); returns ``(result, wall s, device
+    ms per device, calls)``."""
+    import torch
+    from repro_torch.graph import engine
+    events = []
+    inner = engine.relax_multi
+
+    def timed(values, *args, **kw):
+        with torch.cuda.device(values.device):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(values, *args, **kw)
+            end.record()
+        events.append((str(values.device), start, end))
+        return out
+
+    engine.relax_multi = timed
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+    finally:
+        engine.relax_multi = inner
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+    per_device = {}
+    for dev, start, end in events:
+        per_device[dev] = per_device.get(dev, 0.0) + start.elapsed_time(end)
+    return out, wall, per_device, len(events)
+
+
+def commongraph_reckoned_bytes(shape: dict, bucket: int) -> int:
+    """Device bytes phase 3d's unmeshed step should hold at its peak: the
+    inputs (lane state [bucket, n] values and parents, the common graph
+    and the stacked Δ, 12 bytes an edge), a fixpoint chunk's old and new
+    values and frontiers, relax_multi's best words (4 bytes a lane and
+    vertex without parents) and its lane bits (a word per 32 lanes and
+    vertex)."""
+    n = shape["n_nodes"]
+    cells = bucket * n
+    edges = 12 * (shape["cg_edges"] + bucket * shape["delta_edges"])
+    return (8 * cells + edges + 2 * (4 + 1) * cells + 4 * cells
+            + 4 * n * -(-bucket // 32))
+
+
+def plain_by_lanes(args, kw, per: int = 4):
+    """``relax_multi_ref`` on ``per`` lanes at a time (lanes are
+    independent; the plain version's [lanes, E] temporaries of a 64-lane
+    launch over 2^26 edges do not fit on a card), concatenated."""
+    import torch
+    from repro_torch.kernels.edge_relax_multi.ref import relax_multi_ref
+    values, parent, frontier, blocks, allowed = args
+    parts = []
+    for lo in range(0, values.shape[0], per):
+        rows = slice(lo, lo + per)
+        sub = [b if b[0].dim() == 1 else tuple(a[rows] for a in b)
+               for b in blocks]
+        parts.append(relax_multi_ref(values[rows], parent[rows],
+                                     frontier[rows], sub, allowed, **kw))
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def commongraph_kernel_check(inputs, n: int) -> dict:
+    """Both relax kernels at the cell's shapes against their plain
+    versions, bit for bit, each timed with its bytes bound: relax_multi's
+    seed sweep (the Δ block, frontier = the reached vertices) and first
+    fixpoint sweep (the common graph and the Δ from the seeded frontier),
+    and the certificate's edge_relax sweep over the common graph (beside
+    ``scatter_reduce_`` on precomputed candidates)."""
+    import torch
+    from repro_torch.configs.commongraph import SEMIRING
+    from repro_torch.graph.stability import seed_mask
+    from repro_torch.kernels import edge_relax, relax_multi
+    from repro_torch.kernels.edge_relax.ref import edge_relax_ref
+    kw = dict(op="min_plus", num_nodes=n, k=1, track_parents=False)
+    seed_args = (inputs.values, inputs.parent,
+                 seed_mask(SEMIRING, inputs.values), [tuple(inputs.delta)], 1)
+    seeded = relax_multi(*seed_args, **kw)
+    sweep_args = (seeded[0], seeded[1], seeded[2],
+                  [tuple(inputs.cg), tuple(inputs.delta)], 1)
+    out = {}
+    for label, args in (("seed", seed_args), ("sweep", sweep_args)):
+        got = relax_multi(*args, **kw)
+        t = time.perf_counter()
+        want = plain_by_lanes(args, kw)
+        plain_s = time.perf_counter() - t
+        for part, g, r in zip(("values", "parent", "frontier", "sweeps",
+                               "work"), got, want):
+            same_bits(f"phase 3d relax_multi {label} {part}", g, r)
+        del got, want
+        ms = cuda_ms(lambda: relax_multi(*args, **kw), 5)
+        nbytes, floor, pairs = relax_bytes(args[3], args[2], False, n)
+        out[label] = dict(ms=ms, plain_ms=plain_s * 1e3,
+                          bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                          sector_floor_ms=floor / HBM_BYTES_PER_S * 1e3,
+                          active_edges=pairs,
+                          frontier=int(args[2].sum()))
+    args = (inputs.values[0], *inputs.cg)
+    kw = dict(op="min_plus", num_nodes=n)
+    same_bits("phase 3d edge_relax certificate", edge_relax(*args, **kw),
+              edge_relax_ref(*args, **kw))
+    vals, src, dst, w = args
+    dst_long, cand = dst.long(), vals[src.long()] + w
+    best = torch.full((n + 1,), float("inf"), device=vals.device)
+    # values (4n bytes) stay in the L2 at these shapes: the sector floor
+    # is the bound
+    nbytes = 12 * src.numel() + 8 * n
+    out["certificate"] = dict(
+        ms=cuda_ms(lambda: edge_relax(*args, **kw), 10),
+        plain_ms=cuda_ms(lambda: edge_relax_ref(*args, **kw), 3),
+        library_ms=cuda_ms(lambda: best.scatter_reduce_(0, dst_long, cand,
+                                                        "amin"), 10),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, edges=src.numel())
+    return out
+
+
+def commongraph_phase(device, shapes=COMMONGRAPH_SHAPES_RUN,
+                      extra_meshes=None) -> dict:
+    """Phase 3d: the paper's engine at production scale
+    (``configs/commongraph.py``), each shape at its full published size,
+    the relax counts set to 0 just before the first evolve step and read
+    after the phase's checks. Per shape: generation and start-state
+    seconds, the cell's step cold and warm (wall ms, relax_multi launches
+    and device ms), peak device memory beside its reckoning, per-lane
+    iterations and edge_work; the gates: every valid lane certified a
+    fixpoint by one unmasked ``edge_relax`` sweep per block, no lane
+    stopped by ``max_iters``, padding lanes at 0 iterations and 0.0 work,
+    lanes 0, s // 2 and s - 1 equal to their from-scratch fixpoints, and
+    the cell on a mesh naming the card four times (and on every card where
+    there are two or more, and on ``extra_meshes``) equal to the unmeshed
+    step bit for bit; then relax_multi at the cell's launch shapes against
+    its plain version."""
+    import statistics
+    import torch
+    from repro_torch.configs.commongraph import (
+        COMMONGRAPH_SHAPES,
+        SEMIRING,
+        SOURCE,
+        commongraph_edges,
+        commongraph_inputs,
+        lane_view,
+        make_commongraph_cell,
+    )
+    from repro_torch.graph.engine import ShardSeconds, host_sync, run_to_fixpoint
+    from repro_torch.kernels import edge_relax, relax_multi
+    from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR
+    from repro_torch.launch.mesh import make_snapshot_mesh
+
+    meshes = {"4 x cuda:0": make_snapshot_mesh([device] * 4)}
+    if torch.cuda.device_count() >= 2:
+        meshes[f"{torch.cuda.device_count()} cards"] = make_snapshot_mesh()
+    meshes.update(extra_meshes or {})
+    launches = {"edge_relax": 0, "edge_relax_multi": 0}
+    rows = {}
+    for shape_id in shapes:
+        sh = COMMONGRAPH_SHAPES[shape_id]
+        s, n = sh["n_snapshots"], sh["n_nodes"]
+        tag = f"phase 3d {shape_id}"
+        t0 = time.perf_counter()
+        edges = commongraph_edges(shape_id, 1, seed=0)
+        gen_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        inputs = host_sync(commongraph_inputs(shape_id, 1, 0, device, edges))
+        start_s = time.perf_counter() - t0
+        del edges
+        cell = make_commongraph_cell(shape_id, max_iters=CELL_MAX_ITERS)
+        sb = cell.meta["lane_bucket"]
+        leaves = [inputs.values, inputs.parent, *inputs.cg, *inputs.delta,
+                  inputs.lane_valid]
+        metas = [cell.args[0], cell.args[1], *cell.args[2], *cell.args[3],
+                 cell.args[4]]
+        for got, want in zip(leaves, metas):
+            if got.shape != want.shape or got.dtype != want.dtype:
+                fail(f"{tag}: input {tuple(got.shape)}/{got.dtype} vs the "
+                     f"cell's {tuple(want.shape)}/{want.dtype}")
+        print(f"[chip_smoke] {tag}: {s} snapshots (bucket {sb}), {n} "
+              f"vertices, {sh['cg_edges']} common-graph edges, "
+              f"{sh['delta_edges']} Δ edges per lane; generated in "
+              f"{gen_s:.1f}s (host), uploaded and start state (SSSP fixpoint "
+              f"of the common graph) in {start_s:.1f}s", flush=True)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        edge_relax.launches = 0
+        relax_multi.launches = 0
+        t0 = time.perf_counter()
+        out = host_sync(cell.fn(*inputs))
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        step_launches = relax_multi.launches
+        if step_launches <= 0:
+            fail(f"{tag}: the evolve step never launched relax_multi")
+        warm, warm_s, warm_dev, warm_calls = relax_device_ms(
+            lambda: host_sync(cell.fn(*inputs)))
+        peak = torch.cuda.max_memory_allocated()
+        for i, part in ((0, "values"), (2, "iterations"), (3, "edge_work")):
+            same_bits(f"{tag} warm {part} vs cold", warm[i], out[i])
+        del warm
+        values, _, iters, work = out
+        it, wk = iters.cpu(), work.cpu()
+        if it[s:].any() or wk[s:].any():
+            fail(f"{tag}: padding lanes report iterations {it[s:].tolist()}"
+                 f", work {wk[s:].tolist()}")
+        sweeps = it[:s] - 1
+        capped = [lane for lane in range(s)
+                  if int(sweeps[lane]) >= CELL_MAX_ITERS]
+
+        # the certificate: one unmasked sweep per block improves nothing
+        op = KERNEL_OP_FOR[SEMIRING.name]
+        bad = torch.zeros(s, dtype=torch.int64, device=device)
+        for lane in range(s):
+            for src, dst, w in lane_view(inputs, lane).blocks:
+                best = edge_relax(values[lane], src, dst, w, op=op,
+                                  num_nodes=n)
+                bad[lane] += SEMIRING.strictly_better(best,
+                                                      values[lane]).sum()
+        bad = bad.tolist()
+        if edge_relax.launches < 2 * s:
+            fail(f"{tag}: the certificate launched edge_relax "
+                 f"{edge_relax.launches} times for {s} lanes")
+        unconverged = [lane for lane in range(s) if bad[lane]]
+        if any(lane in capped for lane in unconverged):
+            fail(f"{tag}: lanes {[x for x in unconverged if x in capped]} "
+                 f"reached max_iters = {CELL_MAX_ITERS} without converging "
+                 f"(iterations "
+                 f"{[int(it[x]) for x in capped]}): the reference's config "
+                 "stops them short of the fixpoint")
+        if unconverged:
+            fail(f"{tag}: lanes {unconverged} are not fixpoints "
+                 f"({[bad[x] for x in unconverged]} vertices improve)")
+        for lane in sorted({0, s // 2, s - 1}):
+            scratch = run_to_fixpoint(lane_view(inputs, lane), SEMIRING,
+                                      SOURCE, track_parents=False)
+            same_bits(f"{tag} lane {lane} vs from scratch", values[lane],
+                      scratch.values)
+            del scratch
+
+        per_lane_it = [int(x) for x in it[:s]]
+        per_lane_work = [float(x) for x in wk[:s]]
+        row = dict(
+            snapshots=s, lane_bucket=sb, generation_s=gen_s,
+            start_state_s=start_s, cold_ms=cold_ms, warm_ms=warm_s * 1e3,
+            step_launches=step_launches, warm_relax_calls=warm_calls,
+            warm_relax_device_ms=sum(warm_dev.values()),
+            peak_gib=peak / 2**30, held_before_gib=held / 2**30,
+            reckoned_gib=commongraph_reckoned_bytes(sh, sb) / 2**30,
+            iterations_max=max(per_lane_it),
+            iterations_median=statistics.median(per_lane_it),
+            iterations=per_lane_it, edge_work=per_lane_work,
+            certified_lanes=s, capped_lanes=capped)
+        print(f"[chip_smoke] {tag}: evolve step cold {cold_ms:.1f} ms, warm "
+              f"{warm_s * 1e3:.1f} ms; relax_multi {step_launches} launches "
+              f"per step, warm {row['warm_relax_device_ms']:.3f} device ms in "
+              f"{warm_calls} calls; peak {row['peak_gib']:.2f} GiB "
+              f"(inputs held {row['held_before_gib']:.2f}; reckoned "
+              f"{row['reckoned_gib']:.2f}); iterations per lane max "
+              f"{row['iterations_max']}, median "
+              f"{row['iterations_median']}; edge_work per lane max "
+              f"{max(per_lane_work):.0f}, median "
+              f"{statistics.median(per_lane_work):.0f}; all {s} lanes "
+              f"certified, lanes {sorted({0, s // 2, s - 1})} equal from "
+              f"scratch, {sb - s} padding lanes inert; card "
+              f"{card_line()}", flush=True)
+
+        # the cell on meshes, bit for bit against the unmeshed step
+        row["meshes"] = {}
+        for label, mesh in meshes.items():
+            mcell = make_commongraph_cell(shape_id, mesh, CELL_MAX_ITERS)
+            if mcell.meta["lane_bucket"] != sb:
+                fail(f"{tag} on {label}: bucket {mcell.meta['lane_bucket']}"
+                     f" vs {sb}")
+            ShardSeconds.split = ShardSeconds.replicas = 0.0
+            ShardSeconds.gather = 0.0
+            before = relax_multi.launches
+            t0 = time.perf_counter()
+            got = host_sync(mcell.fn(*inputs))
+            m_cold = (time.perf_counter() - t0) * 1e3
+            m_launches = relax_multi.launches - before
+            host_s = dict(split=ShardSeconds.split,
+                          replicas=ShardSeconds.replicas,
+                          gather=ShardSeconds.gather)
+            for i, part in enumerate(("values", "parent", "iterations",
+                                      "edge_work")):
+                if got[i].device != out[i].device:
+                    fail(f"{tag} on {label}: {part} on {got[i].device}")
+                same_bits(f"{tag} on {label} {part}", got[i], out[i])
+            del got
+            got, m_warm, m_dev, m_calls = relax_device_ms(
+                lambda: host_sync(mcell.fn(*inputs)))
+            del got
+            row["meshes"][label] = dict(
+                cold_ms=m_cold, warm_ms=m_warm * 1e3, launches=m_launches,
+                warm_relax_calls=m_calls, warm_relax_device_ms=m_dev,
+                lanes_per_device=mcell.meta["lanes_per_device"],
+                host_s=host_s)
+            print(f"[chip_smoke] {tag} on {label}: "
+                  f"{mcell.meta['lanes_per_device']} lanes per shard, "
+                  f"values, parents, iterations and edge_work equal the "
+                  f"unmeshed step bit for bit; cold {m_cold:.1f} ms, warm "
+                  f"{m_warm * 1e3:.1f} ms; relax_multi {m_launches} launches"
+                  f", warm device ms per card "
+                  f"{ {d: round(v, 3) for d, v in m_dev.items()} } in "
+                  f"{m_calls} calls; host split {host_s['split']:.6f} s, "
+                  f"replicas {host_s['replicas']:.6f} s, gather "
+                  f"{host_s['gather']:.6f} s", flush=True)
+        launches["edge_relax"] += edge_relax.launches
+        launches["edge_relax_multi"] += relax_multi.launches
+        del out, values
+
+        # relax_multi at the cell's launch shapes against its plain version
+        row["kernel"] = commongraph_kernel_check(inputs, n)
+        cert = row["kernel"].pop("certificate")
+        row["edge_relax"] = cert
+        print(f"[chip_smoke] {tag} edge_relax certificate shape "
+              f"({cert['edges']} edges): bit-exact; kernel {cert['ms']:.3f} "
+              f"ms, plain {cert['plain_ms']:.3f} ms, scatter_reduce_ "
+              f"{cert['library_ms']:.3f} ms, bound {cert['bound_ms']:.3f} ms",
+              flush=True)
+        for label, k in row["kernel"].items():
+            print(f"[chip_smoke] {tag} relax_multi {label} shape ({sb} "
+                  f"lanes, {k['frontier']} frontier entries, "
+                  f"{k['active_edges']} active edges): bit-exact; kernel "
+                  f"{k['ms']:.3f} ms, plain {k['plain_ms']:.1f} ms (4 lanes "
+                  f"at a time), bound {k['bound_ms']:.3f} ms, sector floor "
+                  f"{k['sector_floor_ms']:.3f} ms", flush=True)
+        rows[shape_id] = row
+        del inputs
+        torch.cuda.empty_cache()
+    return dict(launches=launches, shapes=rows)
+
+
 def service_phase() -> dict:
     """Phase 3b: the query service at full width (``serve --service``,
     ``SERVICE_CLIENTS`` clients over the main path's sequence), the relax
@@ -2013,6 +2368,13 @@ def main() -> None:
     print(f"[chip_smoke] phase 3c: launches {shard_row['launches']}; done "
           f"in {time.perf_counter() - t0:.1f}s", flush=True)
 
+    # 3d. the CommonGraph cell at production scale, counters zeroed before
+    # each shape's first step and read after its checks
+    t0 = time.perf_counter()
+    commongraph_row = commongraph_phase(device)
+    print(f"[chip_smoke] phase 3d: launches {commongraph_row['launches']}; "
+          f"done in {time.perf_counter() - t0:.1f}s", flush=True)
+
     # 4. the other four semirings at a smaller size, their auto campaigns
     # priced by the calibrated model; then sssp's priced by raw counts,
     # the plan a user gets without --calibrate
@@ -2113,11 +2475,12 @@ def main() -> None:
 
     # 11. records
     # each path's launches: phase 3's main path, phase 3b's service and
-    # calibration, phase 3c's sharded and unsharded runs, phase 4b's
-    # ingestion
+    # calibration, phase 3c's sharded and unsharded runs, phase 3d's
+    # CommonGraph cell, phase 4b's ingestion
     by_phase = {"3": launches, "3b service": service_row["launches"],
                 "3b calibrate": service_row["calibration"]["launches"],
                 "3c shard": shard_row["launches"],
+                "3d commongraph": commongraph_row["launches"],
                 "4b": ingest_row["launches"]}
     edge_relax_row["launches"] = sum(c["edge_relax"]
                                      for c in by_phase.values())
@@ -2129,6 +2492,7 @@ def main() -> None:
     relax_multi_row["windows"] = windows_row
     relax_multi_row["service"] = service_row
     relax_multi_row["shard"] = shard_row
+    relax_multi_row["commongraph"] = commongraph_row
     relax_multi_row["ingest"] = ingest_row
     print(f"[chip_smoke] total {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"kernels": [edge_relax_row, relax_multi_row,

@@ -43,39 +43,10 @@ from repro_torch.core import (  # noqa: E402
     run_window_stream_batched,
     slide_windows,
 )
-from repro_torch.graph import engine, make_evolving_sequence  # noqa: E402
+from repro_torch.graph import make_evolving_sequence  # noqa: E402
 from repro_torch.graph.semiring import ALL_SEMIRINGS  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch.mesh import make_snapshot_mesh  # noqa: E402
-
-
-def relax_device_ms(fn):
-    """Run ``fn`` with CUDA events around every ``engine.relax_multi`` call
-    (on the call's device and stream); returns ``(result, wall s, device
-    ms, calls)``."""
-    events = []
-    inner = engine.relax_multi
-
-    def timed(values, *args, **kw):
-        with torch.cuda.device(values.device):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = inner(values, *args, **kw)
-            end.record()
-        events.append((start, end))
-        return out
-
-    engine.relax_multi = timed
-    try:
-        t0 = time.perf_counter()
-        out = fn()
-        wall = time.perf_counter() - t0
-    finally:
-        engine.relax_multi = inner
-    for i in range(torch.cuda.device_count()):
-        torch.cuda.synchronize(i)
-    return out, wall, sum(s.elapsed_time(e) for s, e in events), len(events)
 
 
 def main() -> None:
@@ -122,7 +93,9 @@ def main() -> None:
     for name, fn in executors.items():
         for label, mesh in meshes.items():
             fn(mesh)   # blocks and replicas cached
-            _, wall, ms, calls = relax_device_ms(lambda: fn(mesh))
+            _, wall, per_card, calls = chip_smoke.relax_device_ms(
+                lambda: fn(mesh))
+            ms = sum(per_card.values())
             warm[f"{name} {label}"] = dict(wall_s=wall, relax_device_ms=ms,
                                            relax_calls=calls)
             print(f"[shard] warm {name} {label}: wall {wall:.4f} s, relax "

@@ -37,7 +37,7 @@ def get_arch(arch_id: str):
         raise KeyError(f"unknown architecture {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in _MODULES:
         raise NotImplementedError(f"{arch_id} is not ported yet: it waits "
-                                  "for the LM slice (ROADMAP §A12, LM family)")
+                                  "for the LM slice (ROADMAP A10.3, LM family)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG, mod.FAMILY
 

@@ -4,8 +4,9 @@ Counterpart of ``repro.configs.gnn_family``: the same shapes, padding and
 per-shape binding of the feature dims. ``shape_batch`` is the concrete
 counterpart of the reference's abstract ``_graph_input_specs``: a batch
 with the same keys, shapes, dtypes and padding, built on a device. The
-``minibatch`` kind needs ``graph/sampler.py`` and waits (ROADMAP §A12);
-the mesh and ``Cell`` parts wait for multi-GPU work (ROADMAP §A10).
+``minibatch`` kind needs ``graph/sampler.py`` and waits (ROADMAP A10.2);
+the mesh and ``Cell`` parts wait for the dry run and model cells (ROADMAP
+A10.4).
 """
 
 from __future__ import annotations
@@ -85,7 +86,7 @@ def shape_batch(cfg: GNNConfig, shape_id: str, cursor: DataCursor,
     if sh["kind"] == "minibatch":
         raise NotImplementedError(
             f"shape {shape_id!r} needs graph/sampler.py, not ported yet "
-            "(ROADMAP §A12, GNN minibatch_lg)")
+            "(ROADMAP A10.2, GNN minibatch_lg)")
     if sh["kind"] == "molecule":
         n_graphs = sh["batch"]
         n = _pad(n_graphs * sh["n_nodes"], NODE_PAD)

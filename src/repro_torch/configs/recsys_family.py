@@ -4,7 +4,7 @@ Counterpart of ``repro.configs.recsys_family``: the same shapes and the
 reduced config. ``shape_batch`` is the concrete counterpart of the
 reference's abstract ``_abstract_batch``: a batch with the same keys,
 shapes and dtypes, built on a device. The mesh, sharding and ``Cell``
-parts wait for multi-GPU work (ROADMAP §A10).
+parts wait for the dry run and model cells (ROADMAP A10.4).
 """
 
 from __future__ import annotations

@@ -34,8 +34,9 @@ campaigns bit for bit.
 
 ``--shard`` splits the batched executors' lane axis (snapshots for
 dhb/wsb, windows for the batched slide, the stream and the cold
-campaigns) over a 1-D ``data`` mesh (launch/mesh.py): every local card
-with ``--device cuda``, a one-device mesh with ``--device cpu``. Each
+campaigns) over a 1-D ``data`` mesh (launch/mesh.py ``mesh_led_by``):
+every local card with the ``--device`` card first (the store's, where
+results are gathered), a one-device mesh with ``--device cpu``. Each
 launch's lanes bucket to a count the mesh divides, and a ``shard[...]``
 line per executor reports the placement.
 
@@ -84,7 +85,7 @@ from repro_torch.graph import EdgeView, make_evolving_sequence, run_to_fixpoint
 from repro_torch.graph.semiring import ALL_SEMIRINGS
 from repro_torch.kernels import edge_relax, relax_multi
 from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR
-from repro_torch.launch.mesh import make_snapshot_mesh
+from repro_torch.launch.mesh import mesh_led_by
 
 MODES = ("ks", "dh", "dhb", "ws", "wsb")
 
@@ -179,8 +180,8 @@ def main(argv=None) -> dict:
     p.add_argument("--shard", action="store_true",
                    help="shard the batched executors' lane axis (snapshots, "
                         "or windows with --window-batch/--stream) over a 1-D "
-                        "data mesh of every local card (one device with "
-                        "--device cpu)")
+                        "data mesh of every local card, the --device "
+                        "card first (one device with --device cpu)")
     p.add_argument("--window", type=int, default=None, metavar="W",
                    help="also run the sliding-window executor: slide a "
                         "width-W window over the sequence, answering every "
@@ -230,9 +231,7 @@ def main(argv=None) -> dict:
         _build.load_library()
         print(f"[evolve] kernels ready in {time.perf_counter() - t0:.2f}s "
               f"on {torch.cuda.get_device_name(device)}")
-    mesh = None
-    if args.shard:
-        mesh = make_snapshot_mesh([device] if device.type == "cpu" else None)
+    mesh = mesh_led_by(device) if args.shard else None
 
     sr = ALL_SEMIRINGS[args.alg]
     print(f"[evolve] generating {args.snapshots} snapshots of "

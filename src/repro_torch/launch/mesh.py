@@ -16,7 +16,7 @@ are gathered there.
 
 The reference's production meshes (``make_production_mesh``,
 ``make_local_mesh``) serve its dry run and model cells; they wait for
-ROADMAP A3/A10.4.
+ROADMAP A10.4.
 """
 
 from __future__ import annotations
@@ -71,3 +71,16 @@ def make_snapshot_mesh(devices=None) -> SnapshotMesh:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]
     return SnapshotMesh(tuple(devices))
+
+
+def mesh_led_by(device) -> SnapshotMesh:
+    """The mesh evolve's ``--shard`` splits over: every local card with
+    ``device`` first (``cuda:k``, then the others in index order), or the
+    one-device mesh of a CPU ``device``. Results are gathered on the first
+    device, where the store lies."""
+    device = _canonical(device)
+    if device.type != "cuda":
+        return make_snapshot_mesh([device])
+    others = [torch.device("cuda", i) for i in range(torch.cuda.device_count())
+              if i != device.index]
+    return make_snapshot_mesh([device] + others)

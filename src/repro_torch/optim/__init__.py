@@ -1,6 +1,6 @@
 """Optimizer of the port: AdamW with f32 state and global-norm clipping,
 the same math as ``repro.optim.adamw``. ``optim/compress.py`` waits
-(ROADMAP §A12)."""
+(ROADMAP A10.4)."""
 
 from repro_torch.optim.adamw import (
     AdamWState,

@@ -1,5 +1,5 @@
 """Runtime of the port: checkpointing. ``runtime/fault.py`` waits
-(ROADMAP §A12)."""
+(ROADMAP A10.4)."""
 
 from repro_torch.runtime.checkpoint import CheckpointManager
 

@@ -772,3 +772,76 @@ def test_cuda_service_load_on_mesh(cuda_device, kind):
         for wnd, vals in got.results.items():
             assert vals.device == want.results[wnd].device
             _same_bits(vals.cpu(), want.results[wnd].cpu())
+
+
+# -- the paper's engine at production scale (configs/commongraph.py) ----------
+#
+# tests/test_torch_commongraph.py's small shape on the card: the cell's step
+# equals the same step on the CPU (which that file holds against the JAX
+# package), unmeshed and on a mesh naming the card twice.
+
+SMALL_CELL = dict(n_snapshots=5, n_nodes=1024, cg_edges=8192,
+                  delta_edges=512)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extent", [1, 2])
+def test_cuda_commongraph_cell_matches_cpu(cuda_device, monkeypatch, extent):
+    from repro_torch.configs import commongraph
+    monkeypatch.setitem(commongraph.COMMONGRAPH_SHAPES, "small_5x",
+                        dict(SMALL_CELL))
+    edges = commongraph.commongraph_edges("small_5x", extent, seed=0)
+    want = commongraph.make_commongraph_cell("small_5x").fn(
+        *commongraph.commongraph_inputs("small_5x", extent, 0, "cpu", edges))
+    inputs = commongraph.commongraph_inputs("small_5x", extent, 0,
+                                            cuda_device, edges)
+    mesh = (None if extent == 1
+            else make_snapshot_mesh([inputs.values.device] * extent))
+    cell = commongraph.make_commongraph_cell("small_5x", mesh)
+    before = relax_multi.launches
+    got = cell.fn(*inputs)
+    assert relax_multi.launches > before
+    for g, w in zip(got, want):
+        assert g.device == inputs.values.device
+        _same_bits(g.cpu(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("track", [False, True])
+@pytest.mark.parametrize("lanes", [32, 33, 64])
+def test_cuda_relax_multi_wide_lanes(cuda_device, lanes, track):
+    """The CommonGraph cell's launch shape at 32, 33 and 64 lanes (one and
+    two words of lane bits per vertex): a shared block plus a stacked Δ
+    block with masked trailing lanes, k = 3, bit for bit against the
+    plain version."""
+    n = 20_000
+    shared = _on(cuda_device, *skewed_edges(n, 120_000, 21, pad=32))
+    stacked = _on(cuda_device, *_stacked(lanes, n, 400, 22, sort=True, pad=8,
+                                         padding_lanes=(lanes - 1,)))
+    st = _on(cuda_device, *state("sssp", n, 23, lanes))
+    allowed = torch.full((lanes,), 3, dtype=torch.int32, device=cuda_device)
+    allowed[lanes // 2] = 1
+    kw = dict(op="min_plus", num_nodes=n, k=3, track_parents=track)
+    got = relax_multi(*st, [shared, stacked], allowed, **kw)
+    want = relax_multi_ref(*st, [shared, stacked], allowed, **kw)
+    for part, g, r in zip(("values", "parent", "frontier", "sweeps", "work"),
+                          got, want):
+        if g.dtype == torch.float32:
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(g, r), part
+
+
+@pytest.mark.cuda
+def test_cuda_evolve_shard_on_a_second_card(cuda_device):
+    """``evolve --device cuda:1 --shard`` builds its mesh with cuda:1
+    first and verifies, its results on cuda:1."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more cards")
+    from repro_torch.launch import evolve
+    summary = evolve.main(["--nodes", "3000", "--edges", "24000",
+                           "--snapshots", "5", "--changes", "500",
+                           "--device", "cuda:1", "--shard", "--verify",
+                           "--window", "3", "--window-batch"])
+    assert summary["verified"]
+    for per_snap in summary["results"].values():
+        assert all(v.device == torch.device("cuda", 1) for v in per_snap)

@@ -99,6 +99,25 @@ def test_make_snapshot_mesh_extent_repeats_and_no_card(monkeypatch):
         make_snapshot_mesh([])
 
 
+@pytest.mark.parametrize("device,order", [
+    ("cuda", [0, 1, 2, 3]), ("cuda:0", [0, 1, 2, 3]),
+    ("cuda:1", [1, 0, 2, 3]), ("cuda:3", [3, 0, 1, 2])])
+def test_evolve_shard_mesh_leads_with_the_chosen_card(monkeypatch, device,
+                                                      order):
+    """evolve's ``--shard`` mesh (``mesh_led_by``, as evolve builds it)
+    on 4 cards: the ``--device`` card first, then the others in index
+    order, so results gather on the store's card; ``--device cpu`` keeps
+    the one-device CPU mesh."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    mesh = tevolve.mesh_led_by(torch.device(device))
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in order)
+    assert mesh.shape["data"] == 4
+    cpu = tevolve.mesh_led_by(torch.device("cpu"))
+    assert cpu.devices == (torch.device("cpu"),)
+
+
 # -- (b) the split ----------------------------------------------------------------
 
 @pytest.mark.parametrize("extent", [1, 2, 4, 8])

@@ -273,6 +273,8 @@ def test_port_imports_neither_jax_nor_repro():
         ".".join(p.relative_to(REPO / "src").with_suffix("").parts)
         .removesuffix(".__init__")
         for p in (REPO / "src" / "repro_torch").rglob("*.py"))
+    assert {"repro_torch.configs.base",
+            "repro_torch.configs.commongraph"} <= set(modules)
     script = f"""
 import importlib, importlib.abc, sys
 
@@ -298,6 +300,26 @@ print("ok", len({modules!r}))
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok ")
     assert int(proc.stdout.split()[1]) >= 20
+
+
+def test_roadmap_labels_cited_by_the_port_exist():
+    """Every ``ROADMAP §…``/``ROADMAP A…`` label cited under
+    ``src/repro_torch/`` still heads an item (``**A10.4 — …``) or a
+    section (``### C. …``) of ROADMAP.md."""
+    roadmap = (REPO / "ROADMAP.md").read_text()
+    heads = set(re.findall(r"\*\*([A-C]\d+(?:\.\d+)*)\b", roadmap))
+    sections = set(re.findall(r"^### ([A-C])\. ", roadmap, re.M))
+    cited = {}
+    for path in (REPO / "src" / "repro_torch").rglob("*.py"):
+        text = path.read_text()
+        for m in re.finditer(r"ROADMAP(?:\.md)?\s+(§?[A-C][\w./§]*)", text):
+            for label in m.group(1).rstrip(".").split("/"):
+                cited.setdefault(label.lstrip("§"), []).append(
+                    path.relative_to(REPO).as_posix())
+    assert {"A9", "A10.2", "A10.3", "A10.4"} <= set(cited)
+    stale = {label: where for label, where in cited.items()
+             if label not in (sections if len(label) == 1 else heads)}
+    assert not stale, stale
 
 
 def test_kernel_sources_export_every_bound_signature():
