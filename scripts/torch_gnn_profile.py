@@ -5,10 +5,12 @@
 
 For each full-width run of ``launch.train.SHAPE_RUNS`` (gcn-cora on
 ogb_products, pna on molecule, meshgraphnet and graphcast on
-full_graph_sm; the runs of ``chip_smoke.py``'s GNN phase), it sets the run
-up with ``launch.train.shape_run``, takes two warm-up steps
-through ``launch.train.train_step``, then traces two more with
-``torch.profiler`` (CPU and CUDA activities) and prints per run:
+full_graph_sm, and all four on minibatch_lg; the runs of
+``chip_smoke.py``'s GNN phase), it sets the run up with
+``launch.train.shape_run``, takes two warm-up steps through
+``launch.train.train_step``, then traces two more with ``torch.profiler``
+(CPU and CUDA activities) and prints per run (a minibatch_lg step samples
+its own subgraph, ``batch_at(step)``, inside the step's time):
 
 - the wall ms per step (host clock, synchronised),
 - the device-busy ms per step (the sum of every CUDA kernel's time, which
@@ -97,11 +99,16 @@ def trace(step, warm: int, traced: int) -> dict:
 
 
 def profile_run(arch: str, shape_id: str, lr: float, device) -> dict:
-    _, batch, params, opt, loss_fn = shape_run(arch, shape_id, device)
+    _, batch, params, opt, loss_fn, batch_at = shape_run(arch, shape_id,
+                                                         device)
+    sampled = "n_seeds" in batch
+    steps = 0
 
     def step():
-        nonlocal params, opt
-        params, opt, loss, _ = train_step(loss_fn, params, opt, batch, lr=lr)
+        nonlocal params, opt, steps
+        steps += 1
+        b = batch_at(steps) if sampled else batch
+        params, opt, loss, _ = train_step(loss_fn, params, opt, b, lr=lr)
         return float(loss)
     return trace(step, WARM, TRACED)
 

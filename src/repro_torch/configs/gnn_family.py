@@ -4,14 +4,17 @@ Counterpart of ``repro.configs.gnn_family``: the same shapes, padding and
 per-shape binding of the feature dims. ``shape_batch`` is the concrete
 counterpart of the reference's abstract ``_graph_input_specs``: a batch
 with the same keys, shapes, dtypes and padding, built on a device. The
-``minibatch`` kind needs ``graph/sampler.py`` and waits (ROADMAP A10.2);
-the mesh and ``Cell`` parts wait for the dry run and model cells (ROADMAP
+``minibatch`` kind samples a subgraph of the shape's graph
+(``shape_graph``: a seeded uniform graph at the shape's node and edge
+counts, built once per process) with the port's ``graph/sampler.py``. The
+mesh and ``Cell`` parts wait for the dry run and model cells (ROADMAP
 A10.4).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
@@ -19,7 +22,10 @@ from repro_torch.data.pipeline import (
     DataCursor,
     gnn_full_batch,
     gnn_molecule_batch,
+    gnn_sampled_batch,
+    uniform_graph,
 )
+from repro_torch.graph.sampler import NeighborSampler
 from repro_torch.models.gnn import GNNConfig
 
 GNN_SHAPES = {
@@ -34,7 +40,8 @@ GNN_SHAPES = {
 # Node arrays pad to 1024 and edge arrays to 512, as the reference pads them
 # for its sharded jit boundary. Padded edges carry the sentinel dst == n;
 # padded labels are -1 (masked by the CE loss); padded nodes of a molecule
-# batch carry the sentinel graph id n_graphs.
+# batch carry the sentinel graph id n_graphs; padded nodes of a sampled
+# batch carry id 0 and node_valid False.
 NODE_PAD, EDGE_PAD = 1024, 512
 
 
@@ -72,22 +79,42 @@ def _pad_edges(batch: dict, e: int, sentinel: int) -> None:
     batch["edge_feat"] = _pad_rows(batch["edge_feat"], e, 0.0)
 
 
+@functools.lru_cache(maxsize=1)
+def shape_graph(shape_id: str, seed: int) -> NeighborSampler:
+    """The host graph a ``minibatch`` shape samples from: ``uniform_graph``
+    at the shape's node and edge counts, built at the first call for
+    ``(shape_id, seed)`` and shared by every later one (the last one only
+    is kept)."""
+    sh = GNN_SHAPES[shape_id]
+    return uniform_graph(sh["n_nodes"], sh["n_edges"], seed)
+
+
 def shape_batch(cfg: GNNConfig, shape_id: str, cursor: DataCursor,
                 device: str | torch.device = "cuda") -> dict:
     """One padded batch of ``shape_id`` for the shape-bound ``cfg`` (see
-    ``_arch_shape_cfg``), on ``device``, from ``cursor``'s generator.
+    ``_arch_shape_cfg``), on ``device``, from ``cursor``'s generators.
 
-    GraphCast's grid is the shape's graph; its mesh has ``max(n // 4, 42)``
-    nodes and ``4 * mesh`` edges, with random grid->mesh destinations,
-    mesh edges and mesh->grid sources, and grid-edge padding carried over
-    as the sentinels of both bipartite edge sets.
+    A ``minibatch`` shape samples ``shape_graph(shape_id, cursor.seed)``:
+    the sampler's sentinel ``dst == n_local`` becomes the padded node
+    count, the ``dst == n`` of every shape. GraphCast's grid
+    is the shape's graph (a sampled batch's subgraph); its mesh has
+    ``max(n // 4, 42)`` nodes and ``4 * mesh`` edges, with random
+    grid->mesh destinations, mesh edges and mesh->grid sources, and
+    grid-edge sentinels carried over to both bipartite edge sets.
     """
     sh = GNN_SHAPES[shape_id]
     if sh["kind"] == "minibatch":
-        raise NotImplementedError(
-            f"shape {shape_id!r} needs graph/sampler.py, not ported yet "
-            "(ROADMAP A10.2, GNN minibatch_lg)")
-    if sh["kind"] == "molecule":
+        batch = gnn_sampled_batch(cursor, shape_graph(shape_id, cursor.seed),
+                                  sh["batch_nodes"],
+                                  sh["fanout"], cfg.d_out, cfg.task,
+                                  cfg.d_edge, device=device)
+        n_local = batch["nodes"].shape[0]
+        n = _pad(n_local, NODE_PAD)
+        e = _pad(batch["src"].shape[0], EDGE_PAD)
+        batch["dst"] = torch.where(batch["dst"] == n_local, n, batch["dst"])
+        batch["nodes"] = _pad_rows(batch["nodes"], n, 0)
+        batch["node_valid"] = _pad_rows(batch["node_valid"], n, False)
+    elif sh["kind"] == "molecule":
         n_graphs = sh["batch"]
         n = _pad(n_graphs * sh["n_nodes"], NODE_PAD)
         e = _pad(n_graphs * sh["n_edges"], EDGE_PAD)
@@ -121,6 +148,8 @@ def shape_batch(cfg: GNNConfig, shape_id: str, cursor: DataCursor,
         g2m_dst = torch.cat([ids(m, real_edges),
                              torch.full((pad_e,), m, dtype=torch.int32,
                                         device=gen.device)])
+        # a sampled batch's invalid samples are sentinel edges too
+        g2m_dst = torch.where(batch["dst"] == n, m, g2m_dst)
         m2g_src = _pad_rows(ids(m, real_edges), e, 0)
         batch.update({
             "mesh_valid": torch.ones((m,), dtype=torch.bool, device=gen.device),

@@ -7,6 +7,10 @@ from repro_torch.data.pipeline import (
     dien_batch,
     gnn_full_batch,
     gnn_molecule_batch,
+    gnn_sampled_batch,
+    sample_subgraph,
+    uniform_graph,
 )
 
-__all__ = ["DataCursor", "dien_batch", "gnn_full_batch", "gnn_molecule_batch"]
+__all__ = ["DataCursor", "dien_batch", "gnn_full_batch", "gnn_molecule_batch",
+           "gnn_sampled_batch", "sample_subgraph", "uniform_graph"]

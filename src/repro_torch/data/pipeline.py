@@ -6,6 +6,13 @@ distributions, built directly on the given device from a
 ``torch.Generator`` seeded from ``(seed, step)``. The numbers differ from
 ``jax.random``'s for the same seed and step; tests that compare the two
 packages hand the JAX package's batch across as numpy arrays.
+
+Sampled training (``gnn_sampled_batch``) draws on the host: a uniform
+random graph (``uniform_graph``; ``configs.gnn_family.shape_graph`` builds
+it once per shape and seed), and per step the seeds and a
+``NeighborSampler`` draw from numpy generators seeded from ``(seed,
+step)``, so a step's subgraph is the reference sampler's for the same
+graph and mixed seed.
 """
 
 from __future__ import annotations
@@ -15,6 +22,12 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.graph.sampler import NeighborSampler, SampledSubgraph
+
+# Streams of the numpy generators, apart from the torch generators'
+# streams 0 (a batch's tensors) and 1 (GraphCast's mesh).
+GRAPH_STREAM, SEED_STREAM, SAMPLE_STREAM = 2, 3, 4
+
 
 @dataclasses.dataclass
 class DataCursor:
@@ -22,14 +35,20 @@ class DataCursor:
     seed: int
     step: int
 
+    def seed_sequence(self, stream: int = 0) -> np.random.SeedSequence:
+        """The ``SeedSequence`` of ``(seed, step, stream)``."""
+        return np.random.SeedSequence([self.seed, self.step, stream])
+
+    def mixed_seed(self, stream: int = 0) -> int:
+        """One 64-bit seed mixed from ``(seed, step, stream)``."""
+        return int(self.seed_sequence(stream).generate_state(1, np.uint64)[0])
+
     def generator(self, device: str | torch.device = "cuda",
                   stream: int = 0) -> torch.Generator:
         """A generator on ``device`` seeded from ``(seed, step)`` alone;
         each ``stream`` number gives an independent sequence."""
-        mixed = np.random.SeedSequence(
-            [self.seed, self.step, stream]).generate_state(1, np.uint64)[0]
         gen = torch.Generator(device=torch.device(device))
-        gen.manual_seed(int(mixed))
+        gen.manual_seed(self.mixed_seed(stream))
         return gen
 
 
@@ -58,6 +77,55 @@ def gnn_full_batch(cursor: DataCursor, n_nodes: int, n_edges: int,
         batch["labels"] = _randint(gen, d_out, (n_nodes,))
     else:
         batch["targets"] = _randn(gen, (n_nodes, d_out))
+    return batch
+
+
+def uniform_graph(n_nodes: int, n_edges: int, seed: int) -> NeighborSampler:
+    """The in-neighbor CSR of ``n_edges`` edges whose int32 ends are drawn
+    uniformly from ``[0, n_nodes)`` by a numpy generator seeded from
+    ``DataCursor(seed, 0)``'s ``SeedSequence`` (``GRAPH_STREAM``)."""
+    rng = np.random.default_rng(DataCursor(seed, 0).seed_sequence(GRAPH_STREAM))
+    src = rng.integers(0, n_nodes, n_edges, dtype=np.int32)
+    dst = rng.integers(0, n_nodes, n_edges, dtype=np.int32)
+    return NeighborSampler(src, dst, n_nodes)
+
+
+def sample_subgraph(cursor: DataCursor, graph: NeighborSampler,
+                    batch_nodes: int, fanouts: tuple[int, ...]
+                    ) -> SampledSubgraph:
+    """Step ``cursor``'s subgraph of ``graph``: ``batch_nodes`` distinct
+    seeds drawn by a generator seeded with ``cursor.mixed_seed(SEED_STREAM)``,
+    sampled by ``graph.reseeded(cursor.mixed_seed(SAMPLE_STREAM))``."""
+    seeds = np.random.default_rng(cursor.mixed_seed(SEED_STREAM)).choice(
+        graph.num_nodes, batch_nodes, replace=False).astype(np.int32)
+    return graph.reseeded(cursor.mixed_seed(SAMPLE_STREAM)).sample(seeds,
+                                                                  fanouts)
+
+
+def gnn_sampled_batch(cursor: DataCursor, graph: NeighborSampler,
+                      batch_nodes: int, fanouts: tuple[int, ...], d_out: int,
+                      task: str, d_edge: int = 4, *,
+                      device: str | torch.device = "cuda"):
+    """One sampled-training batch: ``sample_subgraph``'s nodes, node_valid,
+    src, dst (the sentinel ``n_local`` on invalid samples) and n_seeds on
+    ``device``, random edge_feat, and labels (node_class) or targets of the
+    seeds."""
+    sub = sample_subgraph(cursor, graph, batch_nodes, fanouts)
+    gen = cursor.generator(device)
+
+    def put(a):
+        return torch.from_numpy(a).to(gen.device)
+    batch = {
+        "nodes": put(sub.nodes), "node_valid": put(sub.node_valid),
+        "src": put(sub.src), "dst": put(sub.dst),
+        "edge_feat": _randn(gen, (sub.src.shape[0], d_edge)),
+        "n_seeds": torch.tensor(sub.n_seeds, dtype=torch.int32,
+                                device=gen.device),
+    }
+    if task == "node_class":
+        batch["labels"] = _randint(gen, d_out, (batch_nodes,))
+    else:
+        batch["targets"] = _randn(gen, (batch_nodes, d_out))
     return batch
 
 

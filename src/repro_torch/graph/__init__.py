@@ -1,5 +1,5 @@
 """Graph substrate of the PyTorch port: edge sets, semirings, fixpoint
-engine, generators and the stable-vertex analysis.
+engine, generators, the neighbor sampler and the stable-vertex analysis.
 
 Counterpart of ``repro.graph``: dense, frontier-masked edge-relaxation
 sweeps over immutable edge blocks, run by the hand-written CUDA relax
@@ -38,6 +38,7 @@ from repro_torch.graph.generators import (
     EvolvingSequence,
     make_evolving_sequence,
 )
+from repro_torch.graph.sampler import NeighborSampler, SampledSubgraph
 from repro_torch.graph.stability import (
     SEED_MODES,
     SeededState,
@@ -71,6 +72,8 @@ __all__ = [
     "rmat_edges",
     "EvolvingSequence",
     "make_evolving_sequence",
+    "NeighborSampler",
+    "SampledSubgraph",
     "SEED_MODES",
     "SeededState",
     "seed_mask",

@@ -16,8 +16,9 @@ history in the ``embedding_bag`` kernel. The LM family is not ported yet
         --device cpu
 
 ``configs.gnn_family.shape_batch`` gives the batches of the named GNN
-shapes (ogb_products, molecule, full_graph_sm) for ``train_step``, and
-``shape_run`` sets up a full-width run on one of them; ``dien_run`` does
+shapes (ogb_products, molecule, full_graph_sm, and minibatch_lg's sampled
+subgraphs) for ``train_step``, and ``shape_run`` sets up a full-width run
+on one of them; ``dien_run`` does
 the same for DIEN's shapes (``configs.recsys_family``). This driver, like
 the reference's, trains a GNN on one small random graph and DIEN on one
 ``--batch``-row batch.
@@ -40,13 +41,20 @@ from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.tree import tree_leaves, tree_unflatten
 
-# The full-width run of each architecture on a named shape, with its
-# learning rate: (architecture, shape, lr). The two deep models take 1e-4,
+# The full-width runs of each architecture on named shapes, with their
+# learning rates: (architecture, shape, lr). The two deep models take 1e-4,
 # since at 1e-3 their first Adam steps overshoot and a 5-step run's loss
 # need not fall (the same on the card and on the CPU from the same weights).
+# So does pna on minibatch_lg: a sampled subgraph's last hop has no
+# in-edge, its attenuation scaler (delta / 1e-6) makes logits in the
+# thousands, and at 1e-3 the loss of its step-0 subgraph went 4,301 ->
+# 6,769 -> 5,913 -> 6,318 -> 5,178 on an H100, falling at 3e-4 and 1e-4.
 SHAPE_RUNS = (("gcn-cora", "ogb_products", 1e-3), ("pna", "molecule", 1e-3),
               ("meshgraphnet", "full_graph_sm", 1e-4),
-              ("graphcast", "full_graph_sm", 1e-4))
+              ("graphcast", "full_graph_sm", 1e-4),
+              ("gcn-cora", "minibatch_lg", 1e-3), ("pna", "minibatch_lg", 1e-4),
+              ("meshgraphnet", "minibatch_lg", 1e-4),
+              ("graphcast", "minibatch_lg", 1e-4))
 # DIEN's full-width training rows on one card: train_batch's 65,536-row
 # global batch (sharded over a pod by the reference) cut to a quarter,
 # since the GRU and AUGRU keep ~100 steps of activations per row for the
@@ -121,18 +129,22 @@ def _graphcastify(b, n, e, cfg, cursor, device):
 
 def shape_run(arch: str, shape_id: str, device: str | torch.device = "cuda",
               seed: int = 0):
-    """(cfg, batch, params, opt, loss_fn) of ``arch`` at its full width on
-    ``shape_id``: the batch from ``DataCursor(seed, 0)``, the parameters
+    """(cfg, batch, params, opt, loss_fn, batch_at) of ``arch`` at its full
+    width on ``shape_id``: ``batch_at(step)`` is the batch of
+    ``DataCursor(seed, step)`` (a fresh sampled subgraph per step on a
+    ``minibatch`` shape), ``batch`` is ``batch_at(0)``, the parameters come
     from a generator on ``device`` seeded with ``seed``."""
     cfg = _arch_shape_cfg(get_arch(arch)[0], shape_id)
-    batch = shape_batch(cfg, shape_id, DataCursor(seed, 0), device)
+
+    def batch_at(step):
+        return shape_batch(cfg, shape_id, DataCursor(seed, step), device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = init_gnn_params(gen, cfg)
 
     def loss_fn(p, b):
         return gnn_loss(cfg, p, b)
-    return cfg, batch, params, adamw_init(params), loss_fn
+    return cfg, batch_at(0), params, adamw_init(params), loss_fn, batch_at
 
 
 def dien_run(shape_id: str, device: str | torch.device = "cuda",

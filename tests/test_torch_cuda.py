@@ -361,6 +361,108 @@ def test_cuda_train_driver_decreases_loss(cuda_device, arch):
     assert segment_reduce.launches > before
 
 
+def _sampled_nodes(device):
+    """minibatch_lg's sampled ``nodes`` at its full batch_nodes and fanout
+    (169,984 ids) on ``device``, from a graph with the shape's 232,965
+    nodes (and fewer edges), and the feature table's rows (233,472)."""
+    from repro_torch.configs.gnn_family import GNN_SHAPES, NODE_PAD, _pad
+    from repro_torch.data import DataCursor, sample_subgraph, uniform_graph
+    sh = GNN_SHAPES["minibatch_lg"]
+    graph = uniform_graph(sh["n_nodes"], 4_000_000, seed=0)
+    sub = sample_subgraph(DataCursor(0, 0), graph, sh["batch_nodes"],
+                          sh["fanout"])
+    return (torch.from_numpy(sub.nodes).to(device),
+            _pad(sh["n_nodes"], NODE_PAD))
+
+
+@pytest.mark.cuda
+def test_cuda_segment_reduce_sampled_nodes_into_the_feature_table(
+        cuda_device):
+    """The feature table's gradient: 169,984 sampled ids into 233,472 rows
+    at D = 602, most rows empty, bit for bit against the plain version."""
+    nodes, rows = _sampled_nodes(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    data = torch.randn((nodes.shape[0], 602), generator=gen,
+                       device=cuda_device)
+    lay = segment_layout(nodes, rows)
+    assert int((lay.offsets.diff() == 0).sum()) > rows - nodes.shape[0]
+    before = segment_reduce.launches
+    got = segment_reduce(data, nodes, num_segments=rows, layout=lay)
+    assert segment_reduce.launches == before + 1
+    _same_bits(got, segment_reduce_ref(data, nodes, num_segments=rows,
+                                       layout=lay))
+
+
+@pytest.mark.cuda
+def test_cuda_gather_rows_backward_on_sampled_nodes_matches_index_add(
+        cuda_device):
+    """``gather_rows``' backward over the sampled nodes (the table's
+    gradient) against ``index_add_``, which adds in another order: within
+    the rounding of a sum, 2 (k - 1) 2^-24 times the sum of the |terms|
+    for a row of k terms."""
+    nodes, rows = _sampled_nodes(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    table = torch.randn((rows, 602), generator=gen,
+                        device=cuda_device).requires_grad_()
+    up = torch.randn((nodes.shape[0], 602), generator=gen, device=cuda_device)
+    before = segment_reduce.launches
+    out = gather_rows(table, nodes, segment_layout(nodes, rows))
+    (got,) = torch.autograd.grad(out, table, up)
+    assert segment_reduce.launches == before + 1
+    idx = nodes.long()
+    want = torch.zeros_like(got).index_add_(0, idx, up)
+    terms = torch.zeros_like(got).index_add_(0, idx, up.abs())
+    k = torch.bincount(idx, minlength=rows).float()[:, None]
+    tol = 2 * torch.clamp(k - 1, min=0) * 2.0**-24 * terms
+    assert bool(((got - want).abs() <= tol).all())
+    assert torch.equal(got[k[:, 0] == 0], torch.zeros_like(got[k[:, 0] == 0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gcn-cora", "pna", "meshgraphnet",
+                                  "graphcast"])
+def test_cuda_sampled_step_matches_cpu(cuda_device, monkeypatch, arch):
+    """Three AdamW steps of a reduced model on a small sampled batch (16
+    seeds, fanout 3-2, a 1,024-row feature table) on the card and on the
+    CPU from the same weights and batch: the first loss and gradient norm
+    within 1e-5 and 1e-4 relative, later losses within 2e-2 (``chip_smoke``'s
+    card-vs-CPU tolerances)."""
+    import dataclasses
+    from repro_torch.configs import gnn_family, reduced_config
+    from repro_torch.data import DataCursor
+    from repro_torch.models.gnn import gnn_loss, init_gnn_params
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_map
+    monkeypatch.setitem(gnn_family.GNN_SHAPES, "minibatch_xs", dict(
+        kind="minibatch", n_nodes=1_000, n_edges=100_000, batch_nodes=16,
+        fanout=(3, 2), d_feat=12))
+    cfg = reduced_config(arch)[0]
+    cfg = dataclasses.replace(
+        cfg, d_in=cfg.n_vars if arch == "graphcast" else 12,
+        d_out=cfg.n_vars if arch == "graphcast" else 5,
+        task="node_class" if arch in ("gcn-cora", "pna") else "node_reg",
+        feature_table=1_024)
+    batch = gnn_family.shape_batch(cfg, "minibatch_xs", DataCursor(0, 0),
+                                   "cpu")
+    params = init_gnn_params(torch.Generator().manual_seed(0), cfg)
+    runs = []
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda t, d=dev: t.to(d), params)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        o, losses, gnorms = adamw_init(p), [], []
+        for _ in range(3):
+            p, o, loss, gnorm = train.train_step(
+                lambda q, bb: gnn_loss(cfg, q, bb), p, o, b, lr=1e-3)
+            losses.append(float(loss))
+            gnorms.append(float(gnorm))
+        runs.append((losses, gnorms))
+    (cpu_l, cpu_g), (card_l, card_g) = runs
+    assert abs(card_l[0] - cpu_l[0]) <= 1e-5 * abs(cpu_l[0])
+    assert abs(card_g[0] - cpu_g[0]) <= 1e-4 * abs(cpu_g[0])
+    for a, b in zip(card_l[1:], cpu_l[1:]):
+        assert abs(a - b) <= 2e-2 * abs(b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [1, 7, 18, 36])
 @pytest.mark.parametrize("flags", ["plain", "specials"])

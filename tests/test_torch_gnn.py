@@ -12,7 +12,7 @@ within 1e-4 of each leaf's largest magnitude, parameters after three steps
 of lr 1e-3 within 2e-5 (measured: at most 3e-6).
 
 Also here: padding edges are inert, ``shape_batch`` matches the reference's
-abstract ``_graph_input_specs``, the data feeders, AdamW, the common
+abstract ``_graph_input_specs`` (``minibatch_lg`` on a stand-in graph), the data feeders, AdamW, the common
 blocks, the config registry, checkpoints and the train CLI on the CPU.
 """
 
@@ -40,12 +40,19 @@ from repro.models.gnn import gnn_forward as j_forward  # noqa: E402
 from repro.optim import adamw_init as j_adamw_init  # noqa: E402
 from repro.optim import adamw_update as j_adamw_update  # noqa: E402
 from repro_torch import configs as tconfigs  # noqa: E402
+from repro_torch.configs import gnn_family  # noqa: E402
 from repro_torch.configs.gnn_family import (  # noqa: E402
     GNN_SHAPES,
     _arch_shape_cfg,
     shape_batch,
 )
-from repro_torch.data import DataCursor, gnn_full_batch, gnn_molecule_batch  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    DataCursor,
+    gnn_full_batch,
+    gnn_molecule_batch,
+    uniform_graph,
+)
+from repro_torch.graph.sampler import subgraph_shapes  # noqa: E402
 from repro_torch.interop import params_from_arrays  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import common as tcommon  # noqa: E402
@@ -148,27 +155,42 @@ def test_padding_edges_are_inert(arch):
     np.testing.assert_allclose(out1.numpy(), out2.numpy(), rtol=1e-6)
 
 
+def _stand_in_graph(monkeypatch):
+    """A small uniform graph for ``minibatch_lg``'s batches, in place of
+    ``shape_graph``'s: their shapes depend only on the shape's batch_nodes
+    and fanout, not on the graph."""
+    graph = uniform_graph(4_096, 100_000, seed=0)
+    monkeypatch.setattr(gnn_family, "shape_graph", lambda *_: graph)
+    return graph
+
+
 @pytest.mark.parametrize("arch", GNN_ARCHS)
-@pytest.mark.parametrize("shape_id", ["full_graph_sm", "molecule"])
-def test_shape_batch_matches_reference_specs(arch, shape_id):
+@pytest.mark.parametrize("shape_id", ["full_graph_sm", "molecule",
+                                      "minibatch_lg"])
+def test_shape_batch_matches_reference_specs(arch, shape_id, monkeypatch):
     """Same keys, shapes and dtypes as ``_graph_input_specs``; padding
-    edges carry the sentinel; one training loss is finite."""
+    edges carry the sentinel; one training loss is finite. ``minibatch_lg``
+    samples a stand-in graph at the shape's full batch_nodes and fanout."""
     tcfg = _arch_shape_cfg(tconfigs.get_arch(arch)[0], shape_id)
     jcfg = j_arch_shape_cfg(j_get_arch(arch)[0], shape_id)
     specs, _ = _graph_input_specs(jcfg, shape_id, MeshAxes())
+    sh = GNN_SHAPES[shape_id]
+    minibatch = sh["kind"] == "minibatch"
+    graph = _stand_in_graph(monkeypatch) if minibatch else None
     batch = shape_batch(tcfg, shape_id, DataCursor(0, 0), "cpu")
     assert sorted(batch) == sorted(specs)
     for k, s in specs.items():
         assert tuple(batch[k].shape) == tuple(s.shape), k
         assert str(batch[k].dtype).removeprefix("torch.") == str(s.dtype), k
-    dst, n = ((batch["m2g_dst"], batch["x"].shape[0]) if arch == "graphcast"
-              else (batch["dst"], batch["x"].shape[0]))
-    sh = GNN_SHAPES[shape_id]
-    real = sh["n_edges"] * sh.get("batch", 1)
+    n = batch["nodes" if minibatch else "x"].shape[0]
+    dst = batch["m2g_dst"] if arch == "graphcast" else batch["dst"]
+    real = (subgraph_shapes(sh["batch_nodes"], sh["fanout"])[1] if minibatch
+            else sh["n_edges"] * sh.get("batch", 1))
     assert int((dst == n).sum()) == dst.shape[0] - real   # the padding
     assert int(dst[:real].max()) < n and int(dst.min()) >= 0
     if arch == "graphcast":
         m = batch["mesh_valid"].shape[0]
+        assert m == max(n // 4, 42)
         assert int((batch["g2m_dst"] == m).sum()) == dst.shape[0] - real
         assert int(batch["mesh_dst"].max()) < m
     if shape_id == "molecule":
@@ -176,36 +198,59 @@ def test_shape_batch_matches_reference_specs(arch, shape_id):
     small = dataclasses.replace(tconfigs.reduced_config(arch)[0],
                                 d_in=tcfg.d_in, d_out=tcfg.d_out,
                                 task=tcfg.task, n_vars=tcfg.n_vars)
+    if minibatch:
+        assert int(batch["n_seeds"]) == sh["batch_nodes"]
+        assert int(batch["nodes"].max()) < graph.num_nodes
+        small = dataclasses.replace(small, feature_table=graph.num_nodes)
     params = init_gnn_params(torch.Generator().manual_seed(1), small)
     assert torch.isfinite(gnn_loss(small, params, batch))
 
 
-def test_shape_batch_is_seeded_and_minibatch_waits():
+def test_shape_batch_is_seeded_and_minibatch_waits(monkeypatch):
+    """Every kind's batch is a function of (seed, step): a molecule batch,
+    and a ``minibatch_lg`` batch, whose sampled subgraph changes with the
+    step and the seed (the minibatch kind no longer waits for a sampler)."""
     cfg = _arch_shape_cfg(tconfigs.get_arch("pna")[0], "molecule")
     a = shape_batch(cfg, "molecule", DataCursor(3, 1), "cpu")
     b = shape_batch(cfg, "molecule", DataCursor(3, 1), "cpu")
     c = shape_batch(cfg, "molecule", DataCursor(3, 2), "cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["x"], c["x"])
-    with pytest.raises(NotImplementedError, match="sampler"):
-        shape_batch(_arch_shape_cfg(tconfigs.get_arch("pna")[0],
-                                    "minibatch_lg"),
-                    "minibatch_lg", DataCursor(0, 0), "cpu")
+    cfg = _arch_shape_cfg(tconfigs.get_arch("pna")[0], "minibatch_lg")
+    _stand_in_graph(monkeypatch)
+
+    def batch(seed, step):
+        return shape_batch(cfg, "minibatch_lg", DataCursor(seed, step), "cpu")
+    a, b = batch(3, 1), batch(3, 1)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    for other in (batch(3, 2), batch(4, 1)):
+        for k in ("nodes", "edge_feat", "labels"):
+            assert not torch.equal(a[k], other[k]), k
+    seeds = a["nodes"][:1_024]
+    assert len(set(seeds.tolist())) == 1_024 and bool(a["node_valid"][:1_024].all())
 
 
 @pytest.mark.parametrize("arch,shape_id,lr", [
-    r for r in ttrain.SHAPE_RUNS if r[1] != "ogb_products"])
+    r for r in ttrain.SHAPE_RUNS if r[1] not in ("ogb_products",
+                                                 "minibatch_lg")])
 def test_shape_run_sets_up_the_full_width_run(arch, shape_id, lr):
     """``shape_run`` is the shape's seeded batch, the architecture's full
-    config bound to the shape, seeded parameters and fresh AdamW state."""
+    config bound to the shape, seeded parameters and fresh AdamW state.
+    (``minibatch_lg``'s full graph and 562 MB feature table stay off the
+    CPU: ``test_shape_batch_matches_reference_specs`` samples a stand-in.)"""
     assert {a for a, _, _ in ttrain.SHAPE_RUNS} == set(GNN_ARCHS)
+    assert {s for _, s, _ in ttrain.SHAPE_RUNS} == set(GNN_SHAPES)
     assert lr == (1e-4 if arch in ("meshgraphnet", "graphcast") else 1e-3)
-    cfg, batch, params, opt, loss_fn = ttrain.shape_run(arch, shape_id, "cpu",
-                                                        seed=2)
+    assert dict((r[:2], r[2]) for r in ttrain.SHAPE_RUNS if r[0] == arch)[
+        (arch, "minibatch_lg")] == (1e-3 if arch == "gcn-cora" else 1e-4)
+    cfg, batch, params, opt, loss_fn, batch_at = ttrain.shape_run(
+        arch, shape_id, "cpu", seed=2)
     assert cfg == _arch_shape_cfg(tconfigs.get_arch(arch)[0], shape_id)
     want = shape_batch(cfg, shape_id, DataCursor(2, 0), "cpu")
     assert sorted(batch) == sorted(want)
     assert all(torch.equal(batch[k], want[k]) for k in want)
+    later = shape_batch(cfg, shape_id, DataCursor(2, 3), "cpu")
+    assert all(torch.equal(batch_at(3)[k], later[k]) for k in later)
     again = init_gnn_params(torch.Generator().manual_seed(2), cfg)
     assert all(torch.equal(a, b) for a, b in zip(tree_leaves(params),
                                                  tree_leaves(again)))
