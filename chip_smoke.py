@@ -166,7 +166,26 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
     embedding_bag and segment_reduce launched; 3 steps at 256 rows on the
     card and on the CPU from the same weights must agree; then the train
     CLI (``--arch dien --steps 5``);
-11. the ``{"kernels": [...]}`` line, the card line, and last
+11. LM serving at published widths (``LM_RUNS``): each config's seeded
+    bfloat16 weights (qwen3-moe-30b-a3b all 48 layers, llama3.2-3b all 28,
+    stablelm-1.6b all 24; nemotron-4-340b 2 of 96 and
+    llama4-maverick-400b-a17b one (dense, MoE) pair: ``LM_DEPTH``) serve a
+    ``LM_BATCH`` x ``LM_PROMPT`` prefill and greedy decode to
+    ``LM_DECODE_STEPS`` tokens (``launch.serve.serve_lm``), the
+    segment_reduce count set to 0 just before and read just after: init s,
+    prefill and decode ms and tokens/s, peak GiB, greedy tokens, one
+    segment_reduce launch per MoE layer and step; every logit finite; then
+    the device-busy ms of one prefill and one decode step
+    (``torch.profiler``) and their share of the walls. The
+    MoE configs' combine calls of the prefill and of one decode step are
+    recorded (``record_segment_calls``) and each held bit for bit against
+    its plain version, timed beside ``index_add_`` and its bytes bound; the
+    dense configs' first decode logits equal ``lm_forward``'s within
+    ``LM_DECODE_ULPS``; stablelm's prefill with
+    ``allow_bf16_reduced_precision_reduction`` flipped; then qwen3 in
+    float32 at 2 layers, card against CPU within ``LM_CPU_TOL``, flipped
+    expert choices printed with their margins;
+12. the ``{"kernels": [...]}`` line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or without the repository's ``src/`` beside this file, it
@@ -243,6 +262,26 @@ GNORM_TOL = {("pna", "minibatch_lg"): 2e-3}
 # reference's own retrieval check, tests/test_models.py); training
 # replays at ``FIRST_LOSS_TOL``/``STEP_LOSS_TOL``.
 LOGIT_TOL, RETRIEVAL_TOL = 1e-5, 1e-4
+# phase 11: LM serving, every config at its published widths: a LM_BATCH x
+# LM_PROMPT prefill (prefill_32k's 32 x 32,768 cut: one layer's float32
+# [B, H, S, S] scores there would not fit the card), then greedy decode to
+# LM_DECODE_STEPS tokens a row (the serve CLI's --decode-steps: the first
+# from the prefill). Depth is cut where the weights would not fit: nemotron
+# to 2 of 96 layers (3.45 B parameters a layer), llama4 to one (dense, MoE)
+# pair of its 24.
+LM_RUNS = ("qwen3-moe-30b-a3b", "llama3.2-3b", "stablelm-1.6b",
+           "nemotron-4-340b", "llama4-maverick-400b-a17b")
+LM_DEPTH = {"nemotron-4-340b": 2, "llama4-maverick-400b-a17b": 2}
+LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 8, 2048, 16
+# The dense configs' decode logits at position LM_PROMPT against
+# lm_forward's over the prompt and the first greedy token: within this many
+# bfloat16 ulps of the largest |logit| (a bfloat16 model; the two paths'
+# products differ in shape, so their float32 sums can round to the other
+# side of a bfloat16 tie, and such a difference spreads through the later
+# layers). qwen3 in float32 on the card against the CPU (2 layers, full
+# width): every logit within LM_CPU_TOL of the largest, as LOGIT_TOL.
+LM_DECODE_ULPS = 16
+LM_CPU_TOL = 1e-4
 # phase 3d: the CommonGraph cell's shapes (configs/commongraph.py), each at
 # its full published size, and the cell's max_iters (the reference's 64)
 COMMONGRAPH_SHAPES_RUN = ("window_32x", "window_64x")
@@ -278,9 +317,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def max_abs_err(got, want) -> float:
+    """Largest |got - want|, counting equal entries and NaN against NaN as
+    0 (a sum of +inf and -inf is NaN on both sides)."""
     import torch
     got, want = got.double(), want.double()
-    diff = torch.where(got == want, torch.zeros_like(got), (got - want).abs())
+    same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+    diff = torch.where(same, torch.zeros_like(got), (got - want).abs())
     return float(diff.max()) if diff.numel() else 0.0
 
 
@@ -738,11 +780,12 @@ def library_ms(reduce: str, lay, data):
                                            device=data.device)), 10), prefilled
 
 
-def segment_case(tag, data, ids, lay, reduce, plain_reps=3):
+def segment_case(tag, data, ids, lay, reduce, plain_reps=3, quiet=False):
     """One segment_reduce case: bit for bit against the plain version,
     then the kernel's, plain and library times, the bytes bound (and for
-    D <= 8 the sector floor). The kernel's calls after the first reuse the
-    tiles it kept in ``lay``. Returns (timed dict, max abs err)."""
+    D <= 8 the sector floor), printed unless ``quiet``. The kernel's calls
+    after the first reuse the tiles it kept in ``lay``. Returns (timed
+    dict, max abs err)."""
     from repro_torch.kernels import segment_reduce
     from repro_torch.kernels.segment_reduce import segment_reduce_ref
     n, d = lay.num_segments, data.shape[1]
@@ -763,6 +806,8 @@ def segment_case(tag, data, ids, lay, reduce, plain_reps=3):
         floor = f", sector floor {timed['sector_floor_ms']:.3f} ms"
     timed["empty_segments"] = int((lay.offsets.diff() == 0).sum())
     timed["dropped_ids"] = ids.shape[0] - int(lay.offsets[-1])
+    if quiet:
+        return timed, err
     print(f"[chip_smoke] {tag} bit-exact ({timed['empty_segments']} empty "
           f"segments, {timed['dropped_ids']} dropped ids): kernel {ms:.3f} "
           f"ms ({ms / bound:.2f}x its bound), plain {plain:.3f} ms, library "
@@ -1648,6 +1693,338 @@ def dien_train_phase(device):
           f"{cpu[0]}, {cpu[1]} (largest relative loss difference "
           f"{worst:.2e}; {time.perf_counter() - t0:.1f}s)", flush=True)
     return bag_launches, seg_launches, run
+
+
+def lm_cut(arch: str):
+    """The config of ``arch`` that phase 11 serves: its published widths,
+    its depth cut to ``LM_DEPTH`` layers where the weights would not fit."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)[0]
+    depth = LM_DEPTH.get(arch)
+    return dataclasses.replace(cfg, n_layers=depth) if depth else cfg
+
+
+def lm_combine_cases(tag, calls, device, case=segment_case):
+    """segment_reduce at every recorded (layout, width, reduce) of an MoE
+    combine, bit for bit against its plain version and timed by ``case``
+    (one seeded [E, D] message stream per shape, its -0.0 and ±inf
+    entries included). Returns a summary: calls, rows, width, the kernel's,
+    plain, library and bound ms (median and largest over the calls), and
+    the largest error."""
+    import statistics
+    import torch
+    rows = {}
+    timed = []
+    for lay, d, reduce in calls:
+        e = lay.seg.shape[0]
+        if (e, d) not in rows:
+            rows.clear()
+            torch.cuda.empty_cache()
+            rows[(e, d)] = special_messages(e, d, seed=d, device=device)
+        t, err = case(f"segment_reduce[{tag},E={e},D={d},{reduce}]",
+                      rows[(e, d)], lay.seg, lay, reduce, quiet=True)
+        timed.append(dict(t, max_abs_err=err))
+    rows.clear()
+    torch.cuda.empty_cache()
+    out = dict(calls=len(timed), edges=timed[0]["edges"],
+               segments=timed[0]["segments"], width=calls[0][1],
+               empty_slots_max=max(t["dropped_ids"] for t in timed),
+               max_abs_err=max(t["max_abs_err"] for t in timed))
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        vals = [t[key] for t in timed]
+        out[key] = statistics.median(vals)
+        out[key + "_max"] = max(vals)
+    print(f"[chip_smoke] phase 11: {tag}: {out['calls']} segment_reduce "
+          f"calls ({out['edges']} slots into {out['segments']} tokens, D = "
+          f"{out['width']}, up to {out['empty_slots_max']} slots empty) "
+          f"bit-exact; "
+          f"kernel {out['ms']:.3f} ms median ({out['ms_max']:.3f} largest), "
+          f"plain {out['plain_ms']:.3f}, library {out['library_ms']:.3f} with "
+          f"its fill, bound {out['bound_ms']:.5f}", flush=True)
+    return out
+
+
+def lm_logit_ulps(got, want) -> float:
+    """max |got - want| in bfloat16 ulps of the largest |want|."""
+    scale = float(want.abs().max())
+    ulp = 2.0 ** (math.floor(math.log2(scale)) - 7)
+    return float((got - want).abs().max()) / ulp
+
+
+def lm_serve_case(device, arch: str, case=segment_case) -> dict:
+    """One config of phase 11: seeded weights at published width (the
+    depth of ``lm_cut``), a short warm-up serve, then ``serve_lm`` at
+    ``LM_BATCH`` x ``LM_PROMPT`` and ``LM_DECODE_STEPS`` with the
+    segment_reduce count set to 0 just before and read just after. MoE
+    configs: every combine call of the prefill and of one decode step held
+    against its plain version (``lm_combine_cases``); dense configs: the
+    first decode step's logits against ``lm_forward``'s last position over
+    the prompt and the first greedy token, within ``LM_DECODE_ULPS``."""
+    import torch
+    from repro_torch.data import DataCursor
+    from repro_torch.kernels import segment_reduce
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer
+    from repro_torch.models.common import matmul_f32
+
+    cfg = lm_cut(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = transformer.init_lm_params(gen, cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    tokens = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                           generator=DataCursor(0, 0).generator(device),
+                           device=device, dtype=torch.int32)
+    serve_lm(cfg, params, tokens[:1, :64], 2)            # warm-up
+    segment_reduce.launches = 0
+    res = serve_lm(cfg, params, tokens, LM_DECODE_STEPS)
+    launches = segment_reduce.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    logits = [res["prefill_logits"], *res["decode_logits"]]
+    for i, lg in enumerate(logits):
+        if tuple(lg.shape) != (LM_BATCH, cfg.vocab) or lg.dtype != \
+                torch.float32 or not bool(torch.isfinite(lg).all()):
+            fail(f"{arch}: logits {i} {tuple(lg.shape)} {lg.dtype}, finite "
+                 f"{bool(torch.isfinite(lg).all())}")
+    n_moe = cfg.layer_kinds().count("moe")
+    if launches != n_moe * LM_DECODE_STEPS:
+        fail(f"{arch}: {launches} segment_reduce launches, not one per MoE "
+             f"layer ({n_moe}) per step ({LM_DECODE_STEPS})")
+    steps = LM_DECODE_STEPS - 1
+    prefill_dev, decode_dev = lm_device_ms(cfg, params, tokens,
+                                           res["tokens"][:, :1])
+    row = dict(arch=arch, layers=cfg.n_layers, params=cfg.param_count(),
+               weights_gib=weights_gib, init_s=init_s, batch=LM_BATCH,
+               prompt=LM_PROMPT, decode_steps=steps,
+               prefill_ms=res["prefill_s"] * 1e3,
+               prefill_tokens_per_s=LM_BATCH * LM_PROMPT / res["prefill_s"],
+               decode_ms_per_step=res["decode_s"] / steps * 1e3,
+               decode_tokens_per_s=LM_BATCH * steps / res["decode_s"],
+               prefill_device_ms=prefill_dev, decode_device_ms=decode_dev,
+               prefill_device_share=prefill_dev / (res["prefill_s"] * 1e3),
+               decode_device_share=decode_dev * steps / (res["decode_s"]
+                                                         * 1e3),
+               peak_gib=peak, segment_reduce_launches=launches,
+               greedy_tokens=res["tokens"].tolist())
+    first = res["tokens"][:, :1]
+    del res, logits
+    torch.cuda.empty_cache()
+    if n_moe:
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            (_, cache), prefill_calls = record_segment_calls(
+                transformer.lm_prefill, cfg, params, tokens)
+            full = transformer.init_kv_cache(cfg, LM_BATCH, LM_PROMPT + 1,
+                                             dtype=cache["k"].dtype,
+                                             device=device)
+            for key in ("k", "v"):
+                full[key][:, :, :LM_PROMPT] = cache[key]
+            del cache
+            _, decode_calls = record_segment_calls(
+                transformer.lm_decode_step, cfg, params, full, first,
+                LM_PROMPT)
+            del full
+        row["combine_prefill"] = lm_combine_cases(f"{arch} prefill",
+                                                  prefill_calls, device, case)
+        row["combine_decode"] = lm_combine_cases(f"{arch} decode",
+                                                 decode_calls, device, case)
+        row["combine_check_s"] = time.perf_counter() - t1
+    else:
+        dec_cache = transformer.init_kv_cache(cfg, LM_BATCH, LM_PROMPT + 1,
+                                              device=device)
+        _, pc = transformer.lm_prefill(cfg, params, tokens)
+        for key in ("k", "v"):
+            dec_cache[key][:, :, :LM_PROMPT] = pc[key]
+        del pc
+        got, _ = transformer.lm_decode_step(cfg, params, dec_cache, first,
+                                            LM_PROMPT)
+        del dec_cache
+        torch.cuda.empty_cache()
+        x = transformer.lm_forward(cfg, params, torch.cat([tokens, first], 1))
+        want = matmul_f32(x[:, -1], params["lm_head"])
+        del x
+        ulps = lm_logit_ulps(got, want)
+        same_argmax = bool(torch.equal(got.argmax(-1), want.argmax(-1)))
+        if ulps > LM_DECODE_ULPS:
+            fail(f"{arch}: decode's logits at position {LM_PROMPT} differ "
+                 f"from the forward's by {ulps:.2f} bfloat16 ulps of the "
+                 f"largest |logit| (limit {LM_DECODE_ULPS})")
+        row.update(decode_vs_forward_ulps=ulps,
+                   decode_vs_forward_same_argmax=same_argmax)
+        if arch == "stablelm-1.6b":
+            row["bf16_reduced_precision_reduction"] = lm_reduction_flag(
+                cfg, params, tokens)
+    del params, tokens
+    torch.cuda.empty_cache()
+    check = (f"decode vs forward {row['decode_vs_forward_ulps']:.2f} bf16 "
+             f"ulps of the largest |logit|" if not n_moe else
+             f"{row['combine_prefill']['calls']} + "
+             f"{row['combine_decode']['calls']} combine calls bit-exact")
+    print(f"[chip_smoke] phase 11: {arch} ({cfg.n_layers} layers, "
+          f"{row['params'] / 1e9:.2f} B params, {weights_gib:.1f} GiB): init "
+          f"{init_s:.1f}s; prefill {LM_BATCH}x{LM_PROMPT} "
+          f"{row['prefill_ms']:.1f} ms ({row['prefill_tokens_per_s']:.0f} "
+          f"tokens/s); decode {row['decode_ms_per_step']:.2f} ms/step "
+          f"({row['decode_tokens_per_s']:.0f} tokens/s); device-busy "
+          f"{prefill_dev:.1f} ms a prefill "
+          f"({row['prefill_device_share']:.0%}), {decode_dev:.2f} ms a decode "
+          f"step ({row['decode_device_share']:.0%}); peak {peak:.2f} GiB; "
+          f"{launches} segment_reduce launches; {check}; greedy tokens of "
+          f"row 0 {row['greedy_tokens'][0]}", flush=True)
+    return row
+
+
+def lm_device_ms(cfg, params, tokens, first):
+    """Device-busy ms (``profiled_device_ms``) of one prefill of ``tokens``
+    and of one decode step at position ``LM_PROMPT`` fed ``first``, after
+    the timed serving run (its counts already read)."""
+    import torch
+    from repro_torch.models import transformer
+    prefill = profiled_device_ms(
+        lambda: transformer.lm_prefill(cfg, params, tokens), 1)
+    _, pc = transformer.lm_prefill(cfg, params, tokens)
+    cache = transformer.init_kv_cache(cfg, LM_BATCH, LM_PROMPT + 1,
+                                      dtype=pc["k"].dtype, device=tokens.device)
+    for key in ("k", "v"):
+        cache[key][:, :, :LM_PROMPT] = pc[key]
+    del pc
+    decode = profiled_device_ms(lambda: transformer.lm_decode_step(
+        cfg, params, cache, first, LM_PROMPT), 3)
+    del cache
+    torch.cuda.empty_cache()
+    return prefill, decode
+
+
+def lm_reduction_flag(cfg, params, tokens) -> dict:
+    """Whether ``allow_bf16_reduced_precision_reduction`` moves the card's
+    results: stablelm's prefill logits with the flag as PyTorch sets it and
+    flipped, compared bit for bit (the port's bfloat16 products all return
+    float32 through ``out_dtype``)."""
+    import torch
+    from repro_torch.models import transformer
+    flags = torch.backends.cuda.matmul
+    default = flags.allow_bf16_reduced_precision_reduction
+    try:
+        got = {}
+        for value in (default, not default):
+            flags.allow_bf16_reduced_precision_reduction = value
+            got[value] = transformer.lm_prefill(cfg, params, tokens)[0]
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = default
+    diff = float((got[True] - got[False]).abs().max())
+    out = dict(default=default, bit_equal=bool(torch.equal(got[True],
+                                                           got[False])),
+               max_abs_diff=diff)
+    print(f"[chip_smoke] phase 11: allow_bf16_reduced_precision_reduction "
+          f"(default {default}) on vs off: stablelm prefill logits "
+          f"{'bit-equal' if out['bit_equal'] else f'differ by {diff}'}",
+          flush=True)
+    return out
+
+
+def lm_card_vs_cpu(device) -> dict:
+    """qwen3-moe-30b-a3b at full width, 2 layers, float32: a 2 x 64
+    prefill and 4 greedy decode steps on the card (``serve_lm``), then the
+    same weights and tokens (the card's greedy tokens fed back) on the CPU;
+    every logit within ``LM_CPU_TOL`` of the largest |logit|. Every expert
+    choice is recorded on both sides; a flip is printed with its
+    probability margin."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer
+    from repro_torch.tree import tree_map
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(lm_cut("qwen3-moe-30b-a3b"), n_layers=2,
+                              param_dtype=torch.float32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    params = transformer.init_lm_params(gen, cfg)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen,
+                           device=device, dtype=torch.int32)
+    route, routes = transformer._route, []
+
+    def recorded(cfg_, lp, xg):
+        top_p, top_i = route(cfg_, lp, xg)
+        probs = torch.softmax(transformer.matmul_f32(
+            xg.reshape(-1, xg.shape[-1]).float(), lp["router"].float()), -1)
+        ranked = torch.sort(probs, -1, descending=True).values
+        margin = ranked[:, cfg_.top_k - 1] - ranked[:, cfg_.top_k]
+        routes.append((top_i.reshape(-1, cfg_.top_k).cpu(), margin.cpu()))
+        return top_p, top_i
+    transformer._route = recorded
+    try:
+        card = serve_lm(cfg, params, tokens, 5)
+        n_card = len(routes)
+        host = tree_map(lambda t: t.cpu(), params)
+        del params
+        torch.cuda.empty_cache()
+        greedy = card["tokens"].cpu()
+        logits, cache = transformer.lm_prefill(cfg, host, tokens.cpu())
+        cpu = [logits]
+        full = transformer.init_kv_cache(cfg, 2, 64 + 5, dtype=torch.float32,
+                                         device="cpu")
+        for key in ("k", "v"):
+            full[key][:, :, :64] = cache[key]
+        for i in range(4):
+            logits, full = transformer.lm_decode_step(
+                cfg, host, full, greedy[:, i:i + 1], 64 + i)
+            cpu.append(logits)
+    finally:
+        transformer._route = route
+    flips = []
+    for (ci, cm), (hi, _) in zip(routes[:n_card], routes[n_card:]):
+        bad = (ci != hi).any(-1).nonzero().flatten().tolist()
+        flips += [(t, ci[t].tolist(), hi[t].tolist(), float(cm[t]))
+                  for t in bad]
+    if flips:
+        print(f"[chip_smoke] phase 11: expert choices that flipped between "
+              f"card and CPU (token, card, CPU, card's k-th minus (k+1)-th "
+              f"probability): {flips}", flush=True)
+    worst = 0.0
+    for i, (c, h) in enumerate(zip([card["prefill_logits"],
+                                    *card["decode_logits"]], cpu)):
+        rel = float((c.cpu() - h).abs().max()) / float(h.abs().max())
+        worst = max(worst, rel)
+        if rel > LM_CPU_TOL:
+            fail(f"qwen3 float32 card vs CPU: logits {i} differ by {rel:.2e} "
+                 f"of the largest (limit {LM_CPU_TOL}); {len(flips)} expert "
+                 f"choices flipped")
+    min_margin = min(float(m.min()) for _, m in routes)
+    out = dict(rel_diff=worst, flips=len(flips), min_margin=min_margin,
+               seconds=time.perf_counter() - t0)
+    print(f"[chip_smoke] phase 11: qwen3-moe-30b-a3b float32, 2 layers at "
+          f"full width: card and CPU logits (prefill 2x64, 4 decode steps) "
+          f"agree within {worst:.2e} of the largest; {len(flips)} expert "
+          f"choices flipped, smallest top-k margin {min_margin:.2e} "
+          f"({out['seconds']:.1f}s)", flush=True)
+    return out
+
+
+def lm_phase(device, case=segment_case) -> dict:
+    """Phase 11: LM serving at published widths (``LM_RUNS``, depths cut
+    by ``LM_DEPTH``), each config through ``lm_serve_case``, then the card
+    against the CPU (``lm_card_vs_cpu``). TF32 off. Returns the table and
+    the segment_reduce launches of the serving runs."""
+    import gc
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[chip_smoke] phase 11: {torch.cuda.memory_allocated() / 2**30:.2f}"
+          f" GiB held before the LM runs", flush=True)
+    runs = {arch: lm_serve_case(device, arch, case) for arch in LM_RUNS}
+    card_vs_cpu = lm_card_vs_cpu(device)
+    return dict(runs=runs, card_vs_cpu=card_vs_cpu,
+                launches=sum(r["segment_reduce_launches"]
+                             for r in runs.values()))
 
 
 def same_runs(what: str, got, want, keys) -> None:
@@ -2654,6 +3031,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     segment_row["launches"], segment_row["gnn_runs"] = gnn_phase(
         device, segment_row["sampled_graph_setup_s"])
+    gnn_launches = segment_row["launches"]
     print(f"[chip_smoke] phase 6: {segment_row['launches']} segment_reduce "
           f"launches over {len(train.SHAPE_RUNS)} training runs; done in "
           f"{time.perf_counter() - t0:.1f}s (TF32 off)", flush=True)
@@ -2709,7 +3087,20 @@ def main() -> None:
           f"{[round(x, 5) for x in losses]}; done in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 11. records
+    # 11. LM serving, the segment_reduce count zeroed before each config's
+    # serving run and read after
+    t0 = time.perf_counter()
+    lm_row = lm_phase(device)
+    segment_row["launches"] += lm_row["launches"]
+    segment_row["lm_serving"] = lm_row
+    segment_row["launches_by_phase"] = {
+        "6 gnn": gnn_launches, "10 dien": segment_row["dien_launches"],
+        "11 lm": lm_row["launches"]}
+    print(f"[chip_smoke] phase 11: {lm_row['launches']} segment_reduce "
+          f"launches over {len(LM_RUNS)} LM configs; done in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 12. records
     # each path's launches: phase 3's main path, phase 3b's service and
     # calibration, phase 3c's sharded and unsharded runs, phase 3d's
     # CommonGraph cell, phase 4b's ingestion

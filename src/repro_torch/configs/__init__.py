@@ -1,8 +1,9 @@
 """Architecture registry of the port: ``--arch <id>`` resolution.
 
-The GNN family (gcn-cora, pna, meshgraphnet, graphcast) and the recsys
-family (dien) are ported; the LM architectures raise
-``NotImplementedError`` naming the ROADMAP item they wait for.
+All ten architectures resolve: the LM family (qwen3-moe-30b-a3b,
+llama4-maverick-400b-a17b, llama3.2-3b, nemotron-4-340b, stablelm-1.6b),
+the GNN family (gcn-cora, pna, meshgraphnet, graphcast) and the recsys
+family (dien).
 """
 
 from __future__ import annotations
@@ -23,6 +24,11 @@ ARCH_IDS = [
 ]
 
 _MODULES = {
+    "qwen3-moe-30b-a3b": "qwen3_moe_30b_a3b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "llama3.2-3b": "llama3_2_3b",
+    "nemotron-4-340b": "nemotron_4_340b",
+    "stablelm-1.6b": "stablelm_1_6b",
     "pna": "pna",
     "graphcast": "graphcast",
     "gcn-cora": "gcn_cora",
@@ -33,19 +39,20 @@ _MODULES = {
 
 def get_arch(arch_id: str):
     """Returns (config, family) for an architecture id."""
-    if arch_id not in ARCH_IDS:
-        raise KeyError(f"unknown architecture {arch_id!r}; known: {ARCH_IDS}")
     if arch_id not in _MODULES:
-        raise NotImplementedError(f"{arch_id} is not ported yet: it waits "
-                                  "for the LM slice (ROADMAP A10.3, LM family)")
+        raise KeyError(f"unknown architecture {arch_id!r}; known: {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG, mod.FAMILY
 
 
 def reduced_config(arch_id: str):
-    """(reduced config, family): GNNs at 2 layers, width 16 (8 graphcast
-    vars); DIEN at 1,000 items, 50 categories, sequence 10."""
+    """(reduced config, family): LMs at 2 layers, width 64, vocab 256,
+    float32; GNNs at 2 layers, width 16 (8 graphcast vars); DIEN at 1,000
+    items, 50 categories, sequence 10."""
     cfg, family = get_arch(arch_id)
+    if family == "lm":
+        from repro_torch.configs.lm_family import reduced_lm_config
+        return reduced_lm_config(cfg), family
     if family == "recsys":
         from repro_torch.configs.recsys_family import reduced_recsys_config
         return reduced_recsys_config(cfg), family

@@ -1,6 +1,6 @@
 """Deterministic synthetic data of the port: every feeder is a function of
-(seed, step), built on the device it is given. ``lm_batch`` waits for the
-LM slice (ROADMAP A10.3)."""
+(seed, step), built on the device it is given. ``lm_batch`` waits for
+LM training (ROADMAP A10.3)."""
 
 from repro_torch.data.pipeline import (
     DataCursor,

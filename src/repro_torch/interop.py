@@ -4,7 +4,8 @@ For the query engine data takes the place of weights: an evolving
 sequence, an anchor query state or an edge block built by ``repro`` is
 handed over as numpy arrays (``np.asarray`` of the JAX arrays) and rebuilt
 here as the port's objects, so both packages compute on the same inputs.
-Model parameters (GNN, DIEN) cross the same way (``params_from_arrays``). Nothing
+Model parameters (GNN, DIEN, the LMs' bfloat16 ones bit for bit) cross the
+same way (``params_from_arrays``). Nothing
 from ``repro`` is imported.
 """
 
@@ -56,9 +57,16 @@ def block_from_arrays(src, dst, w,
 def params_from_arrays(tree, device: str | torch.device = "cuda"):
     """The port's model parameters from the JAX package's: a nested dict/list
     of arrays (``jax.tree.map(np.asarray, params)``) becomes the same tree
-    of float32 tensors on ``device``."""
+    of tensors on ``device``: bfloat16 leaves (``ml_dtypes.bfloat16``
+    arrays, which ``torch.from_numpy`` rejects) as bfloat16 tensors with
+    the same bits, carried as a 16-bit integer view; every other leaf as
+    float32."""
     if isinstance(tree, dict):
         return {k: params_from_arrays(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [params_from_arrays(v, device) for v in tree]
+    arr = np.asarray(tree)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)

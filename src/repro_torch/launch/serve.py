@@ -1,5 +1,6 @@
-"""Serving entry point of the PyTorch port: the evolving-graph query service
-(counterpart of ``repro.launch.serve``).
+"""Serving entry points of the PyTorch port (counterpart of
+``repro.launch.serve``): the evolving-graph query service (``--service``)
+and the LM prefill + greedy decode loop (``--arch``).
 
 A deterministic seeded load generator simulates concurrent clients issuing
 heterogeneous window queries (mixed semirings, sources, window extents,
@@ -13,8 +14,17 @@ tick:
 
 ``--device`` picks where edge blocks and query state live (default
 ``cuda``, where every packed launch runs the port's CUDA relax kernel;
-``cpu`` runs its plain PyTorch version). The LM serving loop (``--arch``)
-is not ported yet (ROADMAP A10.3) and raises ``NotImplementedError``.
+``cpu`` runs its plain PyTorch version).
+
+``--arch <lm>`` serves an LM (``models/transformer.py``) with seeded
+weights: a ``--batch`` x ``--prompt-len`` prefill, then greedy decode to
+``--decode-steps`` tokens per row (``serve_lm``), printing the reference's
+two ``[serve]`` lines:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen3-moe-30b-a3b --reduced --device cpu
+
+On ``cuda`` the MoE configs' combine runs the ``segment_reduce`` kernel.
 """
 
 from __future__ import annotations
@@ -25,11 +35,19 @@ import time
 
 import torch
 
+from repro_torch.configs import get_arch, reduced_config
 from repro_torch.core.service import QueryService
 from repro_torch.core.snapshots import SnapshotStore
 from repro_torch.core.window import slide_windows
+from repro_torch.data import DataCursor
 from repro_torch.graph.generators import make_evolving_sequence
 from repro_torch.graph.semiring import ALL_SEMIRINGS
+from repro_torch.models.transformer import (
+    init_kv_cache,
+    init_lm_params,
+    lm_decode_step,
+    lm_prefill,
+)
 
 
 def generate_load(num_snapshots, *, num_clients=6, seed=0,
@@ -127,18 +145,88 @@ def _serve_graph(args):
     return service
 
 
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve_lm(cfg, params, tokens: torch.Tensor, decode_steps: int) -> dict:
+    """The reference's ``--arch`` loop: prefill ``tokens`` [B, P], copy the
+    prefill cache into one of ``P + decode_steps`` positions, take the
+    greedy token, then ``decode_steps - 1`` decode steps, each feeding its
+    greedy token to the next. Returns ``tokens`` (int32 [B,
+    decode_steps]), the float32 ``prefill_logits`` [B, V] and each decode
+    step's ``decode_logits``, and the walls ``prefill_s`` and ``decode_s``
+    (the card synchronized at the end of each)."""
+    b, p = tokens.shape
+    device = tokens.device
+    t0 = time.perf_counter()
+    prefill_logits, pcache = lm_prefill(cfg, params, tokens)
+    cache = init_kv_cache(cfg, b, p + decode_steps, dtype=pcache["k"].dtype,
+                          device=device)
+    cache["k"][:, :, :p] = pcache["k"]
+    cache["v"][:, :, :p] = pcache["v"]
+    del pcache
+    next_tok = torch.argmax(prefill_logits, -1).to(torch.int32)[:, None]
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out_tokens, decode_logits = [next_tok], []
+    for i in range(decode_steps - 1):
+        logits, cache = lm_decode_step(cfg, params, cache, next_tok, p + i)
+        decode_logits.append(logits)
+        next_tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        out_tokens.append(next_tok)
+    out = torch.cat(out_tokens, dim=1)
+    _sync(device)
+    return {"tokens": out, "prefill_logits": prefill_logits,
+            "decode_logits": decode_logits, "prefill_s": prefill_s,
+            "decode_s": time.perf_counter() - t0}
+
+
 def _serve_lm(args):
-    """CLI path for ``--arch``: the LM prefill/decode loop, not ported."""
-    raise NotImplementedError(
-        f"--arch {args.arch}: the LM family (models/transformer.py and its "
-        "serving loop) is not ported yet (ROADMAP A10.3)")
+    """CLI path for ``--arch``: seeded weights (a generator seeded with
+    ``--seed``) and prompt tokens (``DataCursor(seed, 0)``'s generator)
+    on ``--device``, then ``serve_lm``. Returns the greedy tokens."""
+    cfg, family = (reduced_config(args.arch) if args.reduced
+                   else get_arch(args.arch))
+    if family != "lm":
+        raise SystemExit(f"--arch {args.arch} is not an LM; serve.py serves "
+                         "LMs")
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise SystemExit("--device cuda needs an NVIDIA GPU; pass "
+                             "--device cpu to run the plain versions")
+        from repro_torch.kernels import _build
+        _build.load_library()
+    gen = torch.Generator(device=device)
+    gen.manual_seed(args.seed)
+    params = init_lm_params(gen, cfg)
+    tok_gen = DataCursor(args.seed, 0).generator(device)
+    toks = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
+                         generator=tok_gen, device=device, dtype=torch.int32)
+    res = serve_lm(cfg, params, toks, args.decode_steps)
+    out = res["tokens"]
+    dt = res["prefill_s"] + res["decode_s"]
+    print(f"[serve] {args.arch}: prefill {args.batch}x{args.prompt_len} + "
+          f"{args.decode_steps} decode steps in {dt:.2f}s")
+    print("[serve] sampled token ids:", out[0].tolist())
+    for logits in [res["prefill_logits"], *res["decode_logits"]]:
+        if bool(torch.isnan(logits).any()):
+            raise AssertionError("NaN logits")
+    return out
 
 
 def main(argv=None):
     p = argparse.ArgumentParser()
     p.add_argument("--service", action="store_true",
                    help="serve seeded graph query load (core/service.py)")
-    p.add_argument("--arch", help="LM architecture to serve (not ported)")
+    p.add_argument("--arch", help="LM architecture to serve (prefill+decode)")
+    p.add_argument("--reduced", action="store_true")
+    p.add_argument("--batch", type=int, default=4)
+    p.add_argument("--prompt-len", type=int, default=16)
+    p.add_argument("--decode-steps", type=int, default=8)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--nodes", type=int, default=400)
     p.add_argument("--edges", type=int, default=3000)
@@ -148,8 +236,9 @@ def main(argv=None):
     p.add_argument("--lane-budget", type=int, default=8)
     p.add_argument("--turn-budget", type=int, default=None)
     p.add_argument("--device", default="cuda",
-                   help="device for edge blocks and query state (default "
-                        "cuda; cpu runs the plain PyTorch kernel versions)")
+                   help="device for edge blocks and query state, or the "
+                        "LM's weights and cache (default cuda; cpu runs the "
+                        "plain PyTorch kernel versions)")
     args = p.parse_args(argv)
 
     if args.service:

@@ -7,8 +7,8 @@ Counterpart of ``repro.launch.train`` with the same flags, plus
 device, and runs ``train_step`` — forward, backward, ``adamw_update`` —
 with checkpoint/restart. On CUDA every GNN aggregation and every row
 gather's backward runs in the ``segment_reduce`` kernel, and DIEN's pooled
-history in the ``embedding_bag`` kernel. The LM family is not ported yet
-(``configs.get_arch`` says which ROADMAP item it waits for).
+history in the ``embedding_bag`` kernel. LM training waits for ROADMAP A10.3
+(the LM family serves through ``launch/serve.py --arch``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch pna --steps 5 \\
         --device cpu
@@ -66,8 +66,14 @@ def build(arch: str, reduced: bool, batch: int, seq: int,
           device: str | torch.device = "cuda"):
     """(cfg, family, params_init(gen), loss_fn(params, batch),
     data_fn(cursor)) for a GNN or recsys architecture; ``batch`` sizes the
-    recsys batch, ``seq`` waits for the LM family."""
+    recsys batch, ``seq`` waits for LM training."""
     cfg, family = reduced_config(arch) if reduced else get_arch(arch)
+    if family == "lm":
+        raise NotImplementedError(
+            f"--arch {arch}: LM training (lm_loss gradients, AdamW over "
+            "bfloat16 parameters, lm_batch) is not ported yet "
+            "(ROADMAP A10.3); the LM family serves through launch/serve.py "
+            "--arch")
     if family == "recsys":
         def dien_init(gen):
             return init_dien_params(gen, cfg)

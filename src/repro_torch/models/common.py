@@ -1,15 +1,18 @@
-"""Shared NN building blocks of the GNN and recsys families: initializers,
-MLPs, norms, losses.
+"""Shared NN building blocks: initializers, MLPs, norms, losses, and the
+LM family's norm and FFNs.
 
 Counterpart of ``repro.models.common``. Parameters are plain dicts of leaf
 tensors; initializers draw from an explicit ``torch.Generator`` on the
 device the parameters live on, so their numbers differ from
 ``jax.random``'s for the same seed (tests carry the JAX package's weights
-across with ``interop.params_from_arrays``). Everything is float32.
+across with ``interop.params_from_arrays``). The GNN and recsys helpers
+are float32. The LM helpers (``embed_init``, ``rms_norm``, ``swiglu``,
+``squared_relu_ffn``) keep their input's dtype as the reference's do: they
+compute in float32 and cast back, and ``matmul_f32`` is the reference's
+``jnp.dot(..., preferred_element_type=jnp.float32)``.
 
 Left out: the latent-sharding hooks ``_lat`` and ``latent_constrainer``,
-which do nothing on one card; the LM helpers ``rms_norm``, ``swiglu``,
-``squared_relu_ffn`` and ``embed_init`` wait for the LM slice.
+which do nothing on one card.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import math
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,
@@ -27,6 +31,80 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
     w = torch.randn((d_in, d_out), generator=gen, device=gen.device)
     return w * scale
+
+
+# Float32 draws per block of ``normal_init``: 2^28 of them, 1 GiB.
+_DRAW_BLOCK = 1 << 28
+
+
+def normal_init(gen: torch.Generator | None, shape: tuple[int, ...],
+                scale: float, dtype: torch.dtype = torch.float32,
+                device: str | torch.device | None = None) -> torch.Tensor:
+    """A ``dtype`` tensor of N(0, 1) draws times ``scale``, on ``device``
+    (default ``gen``'s). Drawn in float32 a block of rows at a time, so a
+    large bfloat16 weight never has a float32 copy of its own size; on the
+    meta device nothing is drawn (``gen`` may be None)."""
+    device = torch.device(device if device is not None else gen.device)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    if device.type == "meta":
+        return out
+    rows = out.view(-1, shape[-1])
+    step = max(1, _DRAW_BLOCK // shape[-1])
+    for lo in range(0, rows.shape[0], step):
+        block = rows[lo:lo + step]
+        block.copy_(torch.randn(block.shape, generator=gen, device=device)
+                    * scale)
+    return out
+
+
+def embed_init(gen: torch.Generator | None, vocab: int, d: int,
+               dtype: torch.dtype = torch.float32,
+               device: str | torch.device | None = None) -> torch.Tensor:
+    """A [vocab, d] embedding table, N(0, 1) times 0.02, in ``dtype``."""
+    return normal_init(gen, (vocab, d), 0.02, dtype, device)
+
+
+def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with a float32 result for 2-D or batched 3-D operands:
+    the reference's ``preferred_element_type=jnp.float32``. Float32
+    operands multiply as they are; bfloat16 ones on the card go through
+    ``torch.mm``/``torch.bmm`` with ``out_dtype=torch.float32`` (products
+    accumulated and returned in float32, no bfloat16 rounding of the
+    result), and on the CPU, whose build has no such overload, are widened
+    first (a bfloat16 product is exact in float32, so only the order of
+    the float32 sums differs). Operands of two dtypes are both widened, as
+    JAX promotes them."""
+    if a.device.type == "cuda" and a.dtype == b.dtype != torch.float32:
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+def rms_norm(x: torch.Tensor, gamma: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    x32 = x.float()
+    y = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+    return (y * gamma.float()).to(x.dtype)
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``jnp.dot(x, w, preferred_element_type=f32)`` for x [..., d], w
+    [d, f]: a float32 [..., f]."""
+    return matmul_f32(x.reshape(-1, x.shape[-1]), w).reshape(
+        x.shape[:-1] + (w.shape[-1],))
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    h = (F.silu(_dot(x, w_gate)) * _dot(x, w_up)).to(x.dtype)
+    return _dot(h, w_down).to(x.dtype)
+
+
+def squared_relu_ffn(x: torch.Tensor, w_up: torch.Tensor,
+                     w_down: torch.Tensor) -> torch.Tensor:
+    """Nemotron-4 style FFN: squared-ReLU activation (arXiv:2402.16819)."""
+    h = torch.square(torch.relu(_dot(x, w_up))).to(x.dtype)
+    return _dot(h, w_down).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,

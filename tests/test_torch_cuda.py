@@ -947,3 +947,62 @@ def test_cuda_evolve_shard_on_a_second_card(cuda_device):
     assert summary["verified"]
     for per_snap in summary["results"].values():
         assert all(v.device == torch.device("cuda", 1) for v in per_snap)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_groups", [1, 3])
+def test_cuda_moe_combine_matches_plain(cuda_device, dtype, n_groups):
+    """The MoE combine (``transformer._combine``) at qwen3's width on the
+    card: one segment_reduce launch, bit for bit the combine on the CPU
+    (the kernel's plain version) from the same slot rows, gates and
+    destinations, sentinel slots included."""
+    from repro_torch.models import transformer
+    g_sz, slots, d = 64, 640, 2048
+    gen = torch.Generator().manual_seed(n_groups)
+    yflat = torch.randn((n_groups, slots, d), generator=gen).to(dtype)
+    gate = torch.rand((n_groups, slots), generator=gen).to(dtype)
+    stt = torch.randint(0, g_sz + 1, (n_groups, slots), generator=gen)
+    before = segment_reduce.launches
+    got = transformer._combine(*(t.to(cuda_device) for t in
+                                 (yflat, gate, stt)), g_sz)
+    assert segment_reduce.launches == before + 1
+    want = transformer._combine(yflat, gate, stt, g_sz)
+    assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "llama4-maverick-"
+                                  "400b-a17b", "llama3.2-3b",
+                                  "nemotron-4-340b", "stablelm-1.6b"])
+def test_cuda_reduced_lm_serving_matches_cpu(cuda_device, arch):
+    """A reduced float32 config (TF32 off): prefill 2 x 32 and 4 decode
+    steps on the card and on the CPU from the same weights and tokens,
+    every logit within 1e-5 of the largest (``chip_smoke.LOGIT_TOL``), the
+    same greedy tokens, and one segment_reduce launch per MoE layer and
+    step on the card."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.transformer import init_lm_params
+    from repro_torch.tree import tree_map
+    cfg = reduced_config(arch)[0]
+    params = init_lm_params(torch.Generator().manual_seed(0), cfg)
+    toks = torch.randint(0, cfg.vocab, (2, 32),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        before = segment_reduce.launches
+        card = serve.serve_lm(cfg, tree_map(lambda t: t.to(cuda_device),
+                                            params),
+                              toks.to(cuda_device), 5)
+        launches = segment_reduce.launches - before
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    cpu = serve.serve_lm(cfg, params, toks, 5)
+    assert launches == cfg.layer_kinds().count("moe") * 5
+    assert torch.equal(card["tokens"].cpu(), cpu["tokens"])
+    for c, h in zip([card["prefill_logits"], *card["decode_logits"]],
+                    [cpu["prefill_logits"], *cpu["decode_logits"]]):
+        assert float((c.cpu() - h).abs().max()) <= 1e-5 * float(
+            h.abs().max())

@@ -357,12 +357,17 @@ def test_configs_and_init_shapes_match_reference(arch):
 
 
 def test_registry_names_what_waits():
-    """dien resolves (full and reduced); the LM archs still wait."""
+    """dien and the LM archs resolve (full and reduced); LM training still
+    waits (ROADMAP A10.3); an unknown id is a KeyError."""
     assert tconfigs.get_arch("dien")[1] == "recsys"
     assert tconfigs.reduced_config("dien")[0].seq_len == 10
     for arch in ("llama3.2-3b", "qwen3-moe-30b-a3b"):
-        with pytest.raises(NotImplementedError, match="LM"):
-            tconfigs.reduced_config(arch)
+        assert tconfigs.get_arch(arch)[1] == "lm"
+        cfg, family = tconfigs.reduced_config(arch)
+        assert family == "lm" and cfg.d_model == 64 and cfg.n_layers == 2
+        with pytest.raises(NotImplementedError, match="A10.3"):
+            ttrain.build(arch, True, 8, 128, "cpu")
+    assert set(tconfigs.ARCH_IDS) == set(tconfigs._MODULES)
     with pytest.raises(KeyError):
         tconfigs.get_arch("resnet")
 

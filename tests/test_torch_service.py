@@ -490,8 +490,8 @@ def test_serve_reproduces_smoke_baseline():
 
 def test_serve_cli_on_cpu(capsys):
     """``serve --service --device cpu`` returns the drained service (the
-    smoke load's counts) and prints its three lines; ``--arch`` names its
-    ROADMAP item; no mode is an error."""
+    smoke load's counts) and prints its three lines; ``--arch <lm>
+    --reduced --device cpu`` serves greedy tokens; no mode is an error."""
     service = tserve.main(["--service", "--nodes", "400", "--edges", "3000",
                            "--snaps", "6", "--changes", "200", "--clients",
                            "4", "--seed", "7", "--device", "cpu"])
@@ -506,7 +506,10 @@ def test_serve_cli_on_cpu(capsys):
     for client in service.clients:
         for vals in client.results.values():
             assert vals.device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="A10.3"):
-        tserve.main(["--arch", "stablelm-1.6b"])
+    toks = tserve.main(["--arch", "stablelm-1.6b", "--reduced", "--device",
+                        "cpu"])
+    assert tuple(toks.shape) == (4, 8) and toks.device.type == "cpu"
+    assert "[serve] stablelm-1.6b: prefill 4x16 + 8 decode steps" in (
+        capsys.readouterr().out)
     with pytest.raises(SystemExit):
         tserve.main([])

@@ -274,7 +274,9 @@ def test_port_imports_neither_jax_nor_repro():
         .removesuffix(".__init__")
         for p in (REPO / "src" / "repro_torch").rglob("*.py"))
     assert {"repro_torch.configs.base", "repro_torch.configs.commongraph",
-            "repro_torch.graph.sampler"} <= set(modules)
+            "repro_torch.graph.sampler", "repro_torch.models.transformer",
+            "repro_torch.configs.lm_family",
+            "repro_torch.configs.qwen3_moe_30b_a3b"} <= set(modules)
     script = f"""
 import importlib, importlib.abc, sys
 
