@@ -66,7 +66,8 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    ``window_32x`` (32 snapshots, 2^20 vertices, 2^24 common-graph edges,
    2^18 Δ edges each) and ``window_64x`` (64, 2^23, 2^26, 2^20), each at
    its full published size, the counts set to 0 just before each shape's
-   first evolve step and read after its checks: generation and
+   first evolve step and read after its checks: generation (on the host,
+   in a spawned process started after phase 1, beside phases 2-3c) and
    start-state seconds, the cell's step (SSSP, ``track_parents=False``,
    ``max_iters`` 64) cold and warm with its relax_multi launches and
    device ms, the peak device memory beside its reckoning, per-lane
@@ -103,8 +104,9 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    edge sets by dst and by src (512); and sum, min and max on a 2^24-edge
    random message stream and on a 2^24-edge Zipf stream (the evolve
    path's R-MAT degree skew, D = 16). Then minibatch_lg's sampled batch
-   (``shape_graph``: 232,965 nodes, 114,615,892 edges, built once and
-   shared with phase 6; its set-up seconds printed): one training step of
+   (``shape_graph``: 232,965 nodes, 114,615,892 edges, built once, in
+   the process that builds phase 3d's edges, and shared with phase 6; its
+   set-up seconds printed): one training step of
    each minibatch_lg run with every segment_reduce call recorded, and each
    recorded (index array, width, reduce) held as a case: the sampled
    ``nodes`` into the 233,472-row feature table (the table gradient, D =
@@ -185,7 +187,25 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
     ``allow_bf16_reduced_precision_reduction`` flipped; then qwen3 in
     float32 at 2 layers, card against CPU within ``LM_CPU_TOL``, flipped
     expert choices printed with their margins;
-12. the ``{"kernels": [...]}`` line, the card line, and last
+12. LM training at published widths (``LM_TRAIN_RUNS``, through
+    ``launch.train.lm_run`` and ``train_step``): bfloat16 weights, AdamW
+    with float32 state, 4 x 4,096 tokens of ``lm_batch``'s step-0 batch
+    (train_4k's sequence, its batch cut from 256), each layer recomputed
+    in the backward; stablelm-1.6b at all 24 layers, qwen3-moe-30b-a3b at
+    2 of 48. The segment_reduce count set to 0 just before
+    ``LM_TRAIN_STEPS`` steps and read just after: the loss must fall, one
+    launch a step for the embedding's gradient and two per MoE layer (the
+    combine, the dispatch's gradient); ms/step,
+    tokens/s, peak GiB beside its reckoning, device-busy ms by kernel kind
+    (``torch.profiler``). Every segment_reduce call of one step, forward
+    and backward, held bit for bit against its plain version, timed
+    beside ``index_add_`` and its bytes bound; two runs of a step give
+    bit-identical gradients and parameters; then qwen3 in float32 at 2
+    layers, one step on the card against the CPU (loss, gradient norm,
+    every gradient and updated parameter; flipped expert choices printed
+    with their margins), and the train CLI (``--arch stablelm-1.6b
+    --reduced --steps 5``);
+13. the ``{"kernels": [...]}`` line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or without the repository's ``src/`` beside this file, it
@@ -194,9 +214,11 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import hashlib
 import json
 import math
+import multiprocessing
 import pathlib
 import subprocess
 import sys
@@ -282,6 +304,16 @@ LM_BATCH, LM_PROMPT, LM_DECODE_STEPS = 8, 2048, 16
 # width): every logit within LM_CPU_TOL of the largest, as LOGIT_TOL.
 LM_DECODE_ULPS = 16
 LM_CPU_TOL = 1e-4
+# phase 12: LM training at published widths (``launch.train.lm_run``):
+# bfloat16 weights, AdamW with float32 state, train_4k's 4,096-token
+# sequences with its 256-row batch cut to ``launch.train.LM_TRAIN_BATCH``
+# (4: 16,384 tokens a step, phase 11's count), on the step-0 batch of
+# ``lm_batch`` (the reference CLI memorizes one), ``LM_TRAIN_STEPS`` steps
+# at ``LM_TRAIN_LR`` (the deep GNNs' rate); stablelm at all 24 layers,
+# qwen3 at 2 of 48 (at 48 its weights alone are 61 GB, m and v 244 GB).
+# Its card-vs-CPU step holds gradients within LM_CPU_TOL.
+LM_TRAIN_RUNS = (("stablelm-1.6b", None), ("qwen3-moe-30b-a3b", 2))
+LM_TRAIN_STEPS, LM_TRAIN_LR = 3, 1e-4
 # phase 3d: the CommonGraph cell's shapes (configs/commongraph.py), each at
 # its full published size, and the cell's max_iters (the reference's 64)
 COMMONGRAPH_SHAPES_RUN = ("window_32x", "window_64x")
@@ -784,16 +816,26 @@ def segment_case(tag, data, ids, lay, reduce, plain_reps=3, quiet=False):
     """One segment_reduce case: bit for bit against the plain version,
     then the kernel's, plain and library times, the bytes bound (and for
     D <= 8 the sector floor), printed unless ``quiet``. The kernel's calls
-    after the first reuse the tiles it kept in ``lay``. Returns (timed
-    dict, max abs err)."""
+    after the first reuse the tiles it kept in ``lay``. ``plain_reps`` 0
+    times the plain version's checking call alone. Returns (timed dict,
+    max abs err)."""
+    import torch
     from repro_torch.kernels import segment_reduce
     from repro_torch.kernels.segment_reduce import segment_reduce_ref
     n, d = lay.num_segments, data.shape[1]
     kw = dict(num_segments=n, reduce=reduce, layout=lay)
-    err = same_bits(tag, segment_reduce(data, ids, **kw),
-                    segment_reduce_ref(data, ids, **kw))
+    got = segment_reduce(data, ids, **kw)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = segment_reduce_ref(data, ids, **kw)
+    end.record()
+    end.synchronize()
+    err = same_bits(tag, got, want)
+    del got, want
     ms = cuda_ms(lambda: segment_reduce(data, ids, **kw), 10)
-    plain = cuda_ms(lambda: segment_reduce_ref(data, ids, **kw), plain_reps)
+    plain = (cuda_ms(lambda: segment_reduce_ref(data, ids, **kw), plain_reps)
+             if plain_reps else start.elapsed_time(end))
     lib, lib_prefilled = library_ms(reduce, lay, data)
     bound = segment_bytes(lay, d) / HBM_BYTES_PER_S * 1e3
     timed = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -833,10 +875,10 @@ def record_segment_calls(fn, *args, **kwargs):
         ops._launch = launch
 
 
-def sampled_index_sets(device):
+def sampled_index_sets(device, sampler):
     """Phase 5's sampled cases, enumerated from the runs: one training step
-    of each minibatch run of ``SHAPE_RUNS`` on the card with its
-    segment_reduce calls recorded. Each recorded index array is named by
+    of each minibatch run of ``SHAPE_RUNS`` on the card, its subgraph
+    sampled from ``sampler``, with its segment_reduce calls recorded. Each recorded index array is named by
     the batch array it is (``nodes``, ``dst``, ``src``, a ``_clamped``
     copy, graphcast's edge sets); the runs sample one subgraph, so an
     array a later run meets again is the same case. Returns ({label: (ids,
@@ -852,7 +894,8 @@ def sampled_index_sets(device):
     for arch, shape_id, lr in SHAPE_RUNS:
         if GNN_SHAPES[shape_id]["kind"] != "minibatch":
             continue
-        _, batch, params, opt, loss_fn, _ = shape_run(arch, shape_id, device)
+        _, batch, params, opt, loss_fn, _ = shape_run(arch, shape_id, device,
+                                                      graph=sampler)
         _, calls = record_segment_calls(train_step, loss_fn, params, opt,
                                         batch, lr=lr)
         n_calls += len(calls)
@@ -887,19 +930,16 @@ def sampled_index_sets(device):
     return index_sets, cases, n_calls
 
 
-def segment_phase(device, case=segment_case):
+def segment_phase(device, graph, case=segment_case):
     """Phase 5: segment_reduce against its plain version on the card, bit
     for bit, at every (index array, width, reduce) the GNN runs of phase 6
-    give it (the minibatch runs' enumerated by ``sampled_index_sets``), and
-    on the 2^24-edge streams; each case run by ``case`` (``segment_case``'s
-    arguments and result)."""
+    give it (the minibatch runs' enumerated by ``sampled_index_sets`` on
+    ``graph``, ``host_graph``'s graph and seconds), and on the 2^24-edge
+    streams; each case run by ``case`` (``segment_case``'s arguments and
+    result)."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.configs.gnn_family import (
-        _arch_shape_cfg,
-        shape_batch,
-        shape_graph,
-    )
+    from repro_torch.configs.gnn_family import _arch_shape_cfg, shape_batch
     from repro_torch.data import DataCursor
     from repro_torch.kernels.segment_reduce import segment_layout
 
@@ -907,14 +947,13 @@ def segment_phase(device, case=segment_case):
         cfg = _arch_shape_cfg(get_arch(arch)[0], shape_id)
         return shape_batch(cfg, shape_id, DataCursor(0, 0), device)
 
-    t0 = time.perf_counter()
-    shape_graph("minibatch_lg", 0)
-    graph_s = time.perf_counter() - t0
+    sampler, graph_s = graph
     print(f"[chip_smoke] phase 5: minibatch_lg's shared graph (232,965 "
           f"nodes, 114,615,892 edges, its in-neighbor CSR) built on the host "
           f"in {graph_s:.1f}s", flush=True)
     t0 = time.perf_counter()
-    sampled_sets, sampled_cases, n_calls = sampled_index_sets(device)
+    sampled_sets, sampled_cases, n_calls = sampled_index_sets(device,
+                                                              sampler)
     print(f"[chip_smoke] phase 5: one training step of each minibatch_lg run "
           f"made {n_calls} segment_reduce calls: {len(sampled_cases)} cases "
           f"on {len(sampled_sets)} index arrays "
@@ -994,9 +1033,11 @@ def segment_phase(device, case=segment_case):
         for reduce in reduces:
             tag = f"segment_reduce[{label},D={d},{reduce}]"
             # the Zipf stream's hubs make the plain version's loop long
+            # (3.7-8.8 s a call on an H100 80GB HBM3 at 700 W): its
+            # checking call is its timing
             timed[f"{label}/D={d}/{reduce}"], case_err = case(
                 tag, data, ids, lay, reduce,
-                plain_reps=1 if label == "zipf" else 3)
+                plain_reps=0 if label == "zipf" else 3)
             err = max(err, case_err)
         del data
         torch.cuda.empty_cache()
@@ -1119,29 +1160,25 @@ def sampled_steps(shape_id, graph, batch_at, loss_fn, params, opt, lr):
                 device_ms_per_step=device, fresh_losses=losses)
 
 
-def gnn_phase(device, graph_setup_s=None):
+def gnn_phase(device, graph):
     """Phase 6: the GNN family's training path on the card, counters set to
-    0 just before and read just after; then each run but those of
-    ``NOT_REPLAYED`` replayed on the CPU from host copies of its initial
-    weights and batch. ``graph_setup_s``: the seconds the minibatch shape's
-    shared graph took to build, where an earlier phase built it. Returns
-    (launches, per-run table)."""
+    0 just before and read just after, the minibatch runs sampling
+    ``graph`` (``host_graph``'s graph and seconds); then each run but those
+    of ``NOT_REPLAYED`` replayed on the CPU from host copies of its initial
+    weights and batch. Returns (launches, per-run table)."""
     import torch
-    from repro_torch.configs.gnn_family import GNN_SHAPES, shape_graph
+    from repro_torch.configs.gnn_family import GNN_SHAPES
     from repro_torch.kernels import segment_reduce
     from repro_torch.launch.train import SHAPE_RUNS, shape_run, train_step
 
+    sampler, graph_setup_s = graph
     runs, replays = {}, []
     segment_reduce.launches = 0
     for arch, shape_id, lr in SHAPE_RUNS:
         t0 = time.perf_counter()
         sampled = GNN_SHAPES[shape_id]["kind"] == "minibatch"
-        if sampled:
-            graph = shape_graph(shape_id, 0)
-            if graph_setup_s is None:
-                graph_setup_s = time.perf_counter() - t0
-        cfg, batch, params, opt, loss_fn, batch_at = shape_run(arch, shape_id,
-                                                               device)
+        cfg, batch, params, opt, loss_fn, batch_at = shape_run(
+            arch, shape_id, device, graph=sampler if sampled else None)
         steps = GNN_STEPS[(arch, shape_id)]
         tag = f"{arch}/{shape_id}"
         if (arch, shape_id) not in NOT_REPLAYED:
@@ -1172,8 +1209,8 @@ def gnn_phase(device, graph_setup_s=None):
             ms_per_step=sum(warm) / len(warm) * 1e3, setup_s=setup)
         fresh = ""
         if sampled:
-            timed = sampled_steps(shape_id, graph, batch_at, loss_fn, params,
-                                  opt, lr)
+            timed = sampled_steps(shape_id, sampler, batch_at, loss_fn,
+                                  params, opt, lr)
             runs[tag].update(timed, edges=batch["src" if arch != "graphcast"
                                                 else "g2m_src"].shape[0],
                              graph_setup_s=graph_setup_s)
@@ -1705,13 +1742,13 @@ def lm_cut(arch: str):
     return dataclasses.replace(cfg, n_layers=depth) if depth else cfg
 
 
-def lm_combine_cases(tag, calls, device, case=segment_case):
+def lm_combine_cases(tag, calls, device, case=segment_case, phase="11"):
     """segment_reduce at every recorded (layout, width, reduce) of an MoE
-    combine, bit for bit against its plain version and timed by ``case``
-    (one seeded [E, D] message stream per shape, its -0.0 and ±inf
-    entries included). Returns a summary: calls, rows, width, the kernel's,
-    plain, library and bound ms (median and largest over the calls), and
-    the largest error."""
+    combine (or of another LM call site), bit for bit against its plain
+    version and timed by ``case`` (one seeded [E, D] message stream per
+    shape, its -0.0 and ±inf entries included). Returns a summary: calls,
+    rows, segments, width, the kernel's, plain, library and bound ms
+    (median and largest over the calls), and the largest error."""
     import statistics
     import torch
     rows = {}
@@ -1735,9 +1772,9 @@ def lm_combine_cases(tag, calls, device, case=segment_case):
         vals = [t[key] for t in timed]
         out[key] = statistics.median(vals)
         out[key + "_max"] = max(vals)
-    print(f"[chip_smoke] phase 11: {tag}: {out['calls']} segment_reduce "
-          f"calls ({out['edges']} slots into {out['segments']} tokens, D = "
-          f"{out['width']}, up to {out['empty_slots_max']} slots empty) "
+    print(f"[chip_smoke] phase {phase}: {tag}: {out['calls']} segment_reduce "
+          f"calls ({out['edges']} rows into {out['segments']} segments, D = "
+          f"{out['width']}, up to {out['empty_slots_max']} rows dropped) "
           f"bit-exact; "
           f"kernel {out['ms']:.3f} ms median ({out['ms_max']:.3f} largest), "
           f"plain {out['plain_ms']:.3f}, library {out['library_ms']:.3f} with "
@@ -2025,6 +2062,299 @@ def lm_phase(device, case=segment_case) -> dict:
     return dict(runs=runs, card_vs_cpu=card_vs_cpu,
                 launches=sum(r["segment_reduce_launches"]
                              for r in runs.values()))
+
+
+def lm_train_reckoned_bytes(cfg, batch: int, seq: int) -> dict:
+    """Device bytes phase 12's training step should peak at, for an
+    unchunked attention: the state (bfloat16 weights and their gradients,
+    float32 ``m`` and ``v``: 12 bytes a parameter), each layer's
+    checkpointed input, and the larger of two backward peaks: one layer's
+    recomputed attention (the saved float32 probabilities, their bfloat16
+    copy, and their gradient in float32 and bfloat16: 12 bytes per
+    [B, H, S, S] entry) and the loss's (the float32 logits and their
+    gradient: 8 bytes per [B x S, V] entry)."""
+    tokens = batch * seq
+    out = dict(state=12 * cfg.param_count(),
+               checkpoints=2 * cfg.n_layers * tokens * cfg.d_model,
+               attention=12 * batch * cfg.n_heads * seq * seq,
+               loss=8 * tokens * cfg.vocab)
+    out["peak"] = (out["state"] + out["checkpoints"]
+                   + max(out["attention"], out["loss"]))
+    return out
+
+
+def lm_train_segment_roles(cfg, calls) -> dict:
+    """A training step's recorded segment_reduce calls by role, in the
+    order a step makes them: each MoE layer's combine in the forward, then
+    in the backward each MoE layer's dispatch gradient (the recomputation
+    stops before the combine: the combine's backward keeps nothing), and
+    last the embedding's gradient (into the vocabulary)."""
+    n_moe = cfg.layer_kinds().count("moe")
+    roles = {"combine": calls[:n_moe],
+             "dispatch gradient": calls[n_moe:2 * n_moe],
+             "embedding gradient": calls[2 * n_moe:]}
+    return {role: c for role, c in roles.items() if c}
+
+
+def lm_train_case(device, arch: str, depth, case=segment_case) -> dict:
+    """One config of phase 12 (``launch.train.lm_run``: published widths,
+    ``depth`` layers where given, seeded bfloat16 weights, the step-0
+    batch): ``LM_TRAIN_STEPS`` train steps at ``LM_TRAIN_LR`` with the
+    segment_reduce count set to 0 just before and read just after: ms per
+    step, tokens/s, peak GiB against ``lm_train_reckoned_bytes``, a
+    falling loss, one launch per step for the embedding's gradient and two
+    per MoE layer (the combine, the dispatch's gradient). Then the step's
+    loss and gradients twice, the first with
+    its segment_reduce calls recorded (each held bit for bit against its
+    plain version by ``case``), the second traced by the profiler
+    (device-busy ms by kind): the two bit-identical, and so the
+    parameters AdamW makes of each."""
+    import torch
+    from repro_torch.kernels import segment_reduce
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw_update
+    from repro_torch.tree import tree_leaves
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent
+                           / "scripts"))
+    from torch_gnn_profile import trace
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, batch, params, opt, loss_fn = train.lm_run(arch, device, 0,
+                                                    n_layers=depth)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b, s = batch["tokens"].shape
+    reckoned = lm_train_reckoned_bytes(cfg, b, s)
+    losses, step_ms = [], []
+    segment_reduce.launches = 0
+    for _ in range(LM_TRAIN_STEPS):
+        t1 = time.perf_counter()
+        params, opt, loss, gnorm = train.train_step(
+            loss_fn, params, opt, batch, lr=LM_TRAIN_LR)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    launches = segment_reduce.launches
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"phase 12 {arch}: losses {losses} at lr {LM_TRAIN_LR} are not "
+             f"finite and falling")
+    n_moe = cfg.layer_kinds().count("moe")
+    if launches != LM_TRAIN_STEPS * (1 + 2 * n_moe):
+        fail(f"phase 12 {arch}: {launches} segment_reduce launches in "
+             f"{LM_TRAIN_STEPS} steps, not 1 + 2 x {n_moe} a step")
+    ms = sum(step_ms[1:]) / len(step_ms[1:])
+
+    (loss_a, grads_a), calls = record_segment_calls(
+        train.loss_and_grads, loss_fn, params, batch)
+    run_b = []
+    prof = trace(lambda: run_b.append(train.loss_and_grads(loss_fn, params,
+                                                           batch)), 0, 1)
+    loss_b, grads_b = run_b.pop()
+    if not torch.equal(loss_a, loss_b):
+        fail(f"phase 12 {arch}: two runs' losses {loss_a} and {loss_b}")
+    for ga, gb in zip(tree_leaves(grads_a), tree_leaves(grads_b)):
+        same_bits(f"phase 12 {arch} gradients of two runs", ga, gb)
+    new_a = adamw_update(grads_a, opt, params, lr=LM_TRAIN_LR,
+                         weight_decay=0.0)[0]
+    del grads_a
+    new_b = adamw_update(grads_b, opt, params, lr=LM_TRAIN_LR,
+                         weight_decay=0.0)[0]
+    del grads_b
+    for pa, pb in zip(tree_leaves(new_a), tree_leaves(new_b)):
+        same_bits(f"phase 12 {arch} parameters of two runs", pa, pb)
+    del new_a, new_b, params, opt, batch
+    torch.cuda.empty_cache()
+
+    if len(calls) != 1 + 2 * n_moe or calls[-1][0].num_segments != cfg.vocab:
+        fail(f"phase 12 {arch}: {len(calls)} recorded segment_reduce calls, "
+             f"not 1 + 2 x {n_moe} ending with the embedding's gradient")
+    roles = lm_train_segment_roles(cfg, calls)
+    cases = {role: lm_combine_cases(f"{arch} {role}", role_calls, device,
+                                    case, phase="12")
+             for role, role_calls in roles.items()}
+    del calls, roles
+    torch.cuda.empty_cache()
+    row = dict(arch=arch, layers=cfg.n_layers, params=cfg.param_count(),
+               init_s=init_s, batch=b, seq=s, lr=LM_TRAIN_LR, losses=losses,
+               step_ms=step_ms, ms_per_step=ms,
+               tokens_per_s=b * s / ms * 1e3, peak_gib=peak / 2**30,
+               reckoned_gib={k: v / 2**30 for k, v in reckoned.items()},
+               segment_reduce_launches=launches, recompute=True,
+               device_ms_per_step=prof["device_ms_per_step"],
+               device_share=prof["device_ms_per_step"] / ms,
+               device_ms_by_kind=prof["by_kind_ms"], segment_cases=cases,
+               deterministic=True)
+    kinds = ", ".join(f"{k} {v:.1f}" for k, v in prof["by_kind_ms"].items())
+    print(f"[chip_smoke] phase 12: {arch} ({cfg.n_layers} layers, "
+          f"{row['params'] / 1e9:.3f} B params, bfloat16, recompute on): "
+          f"init {init_s:.1f}s; {b}x{s} tokens a step, losses "
+          f"{[round(x, 5) for x in losses]} at lr {LM_TRAIN_LR}; "
+          f"{ms:.1f} ms/step (first {step_ms[0]:.1f}), "
+          f"{row['tokens_per_s']:.0f} tokens/s; peak {row['peak_gib']:.2f} "
+          f"GiB (reckoned {row['reckoned_gib']['peak']:.2f}: state "
+          f"{row['reckoned_gib']['state']:.2f}, checkpoints "
+          f"{row['reckoned_gib']['checkpoints']:.2f}, attention "
+          f"{row['reckoned_gib']['attention']:.2f}, loss "
+          f"{row['reckoned_gib']['loss']:.2f}); device-busy "
+          f"{row['device_ms_per_step']:.1f} ms a step "
+          f"({row['device_share']:.0%}; by kind: {kinds}); {launches} "
+          f"segment_reduce launches; two runs' gradients and parameters "
+          f"bit-identical", flush=True)
+    return row
+
+
+def lm_train_card_vs_cpu(device) -> dict:
+    """qwen3-moe-30b-a3b at full width, 2 layers, float32: one training
+    step (``loss_and_grads``, then AdamW at ``LM_TRAIN_LR``) on a 2 x 64
+    ``lm_batch`` on the card and on the CPU from the same weights and
+    batch: the loss within ``FIRST_LOSS_TOL``, the gradient norm within
+    ``FIRST_GNORM_TOL``, every gradient within ``LM_CPU_TOL`` of its
+    leaf's largest magnitude, and every updated parameter within 1e-2 x
+    lr of the CPU's, but where the two gradients' signs differ or the
+    gradient is within ``LM_CPU_TOL`` of 0 (Adam's first step is about lr
+    times the gradient's sign, so such an element may step either way).
+    Every expert choice is recorded on both sides; a flip is printed with
+    its probability margin."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data import DataCursor, lm_batch
+    from repro_torch.launch.train import loss_and_grads
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves, tree_map
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b")[0], n_layers=2,
+                              param_dtype=torch.float32)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    params = transformer.init_lm_params(gen, cfg)
+    batch = lm_batch(DataCursor(1, 0), 2, 64, cfg.vocab, device=device)
+
+    def loss_fn(p, b):
+        return transformer.lm_loss(cfg, p, b["tokens"], b["labels"])
+    route, routes = transformer._route, {"cpu": [], "cuda": []}
+
+    def recorded(cfg_, lp, xg):
+        top_p, top_i = route(cfg_, lp, xg)
+        with torch.no_grad():
+            probs = torch.softmax(transformer.matmul_f32(
+                xg.reshape(-1, xg.shape[-1]), lp["router"]), -1)
+            ranked = torch.sort(probs, -1, descending=True).values
+            margin = ranked[:, cfg_.top_k - 1] - ranked[:, cfg_.top_k]
+        routes[xg.device.type].append((top_i.reshape(-1, cfg_.top_k).cpu(),
+                                       margin.cpu()))
+        return top_p, top_i
+
+    def step(prm, b):
+        t1 = time.perf_counter()
+        loss, grads = loss_and_grads(loss_fn, prm, b)
+        new, _, gnorm = adamw_update(grads, adamw_init(prm), prm,
+                                     lr=LM_TRAIN_LR, weight_decay=0.0)
+        return (float(loss), float(gnorm), grads, new,
+                time.perf_counter() - t1)
+    transformer._route = recorded
+    try:
+        card = step(params, batch)
+        host = tree_map(lambda t: t.cpu(), params)
+        del params
+        torch.cuda.empty_cache()
+        cpu = step(host, {k: v.cpu() for k, v in batch.items()})
+        del host
+    finally:
+        transformer._route = route
+    cpu_s = cpu[4]
+    flips = []
+    for (ci, cm), (hi, _) in zip(routes["cuda"], routes["cpu"]):
+        bad = (ci != hi).any(-1).nonzero().flatten().tolist()
+        flips += [(t, ci[t].tolist(), hi[t].tolist(), float(cm[t]))
+                  for t in bad]
+    if flips:
+        print(f"[chip_smoke] phase 12: expert choices that flipped between "
+              f"card and CPU (token, card, CPU, card's k-th minus (k+1)-th "
+              f"probability): {flips}", flush=True)
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-30)
+    (card_loss, card_gnorm), (cpu_loss, cpu_gnorm) = card[:2], cpu[:2]
+    if rel(card_loss, cpu_loss) > FIRST_LOSS_TOL or \
+            rel(card_gnorm, cpu_gnorm) > FIRST_GNORM_TOL:
+        fail(f"phase 12 qwen3 float32 card vs CPU: loss {card_loss} / "
+             f"{cpu_loss}, gradient norm {card_gnorm} / {cpu_gnorm}; "
+             f"{len(flips)} expert choices flipped")
+    worst, sign_steps = 0.0, 0
+    # compared on the card, a leaf at a time
+    for gc, gh, pc, ph in zip(tree_leaves(card[2]), tree_leaves(cpu[2]),
+                              tree_leaves(card[3]), tree_leaves(cpu[3])):
+        gh, ph = gh.to(device), ph.to(device)
+        top = float(gh.abs().max())
+        err = float((gc - gh).abs().max()) / max(top, 1e-30)
+        worst = max(worst, err)
+        if err > LM_CPU_TOL:
+            fail(f"phase 12 qwen3 float32 card vs CPU: a gradient leaf "
+                 f"{tuple(gh.shape)} differs by {err:.2e} of its largest "
+                 f"(limit {LM_CPU_TOL}); {len(flips)} expert choices flipped")
+        off = (pc - ph).abs() > 1e-2 * LM_TRAIN_LR
+        sign = (gc.sign() != gh.sign()) | (gh.abs() <= LM_CPU_TOL * top)
+        n_off = int((off & ~sign).sum())
+        if n_off:
+            fail(f"phase 12 qwen3 float32 card vs CPU: {n_off} updated "
+                 f"parameters of a leaf {tuple(gh.shape)} differ by more "
+                 f"than 1e-2 x lr where the gradients agree")
+        sign_steps += int(off.sum())
+    del card, cpu
+    torch.cuda.empty_cache()
+    out = dict(loss=card_loss, cpu_loss=cpu_loss, gnorm=card_gnorm,
+               cpu_gnorm=cpu_gnorm, grad_rel_diff=worst,
+               sign_steps=sign_steps, flips=len(flips),
+               min_margin=min(float(m.min()) for _, m in routes["cuda"]),
+               cpu_step_s=cpu_s, seconds=time.perf_counter() - t0)
+    print(f"[chip_smoke] phase 12: qwen3-moe-30b-a3b float32, 2 layers at "
+          f"full width, one step on 2x64 tokens: card and CPU losses "
+          f"{card_loss:.7f} / {cpu_loss:.7f}, gradient norms "
+          f"{card_gnorm:.6f} / {cpu_gnorm:.6f}, gradients within "
+          f"{worst:.2e} of each leaf's "
+          f"largest; {sign_steps} updated parameters stepped otherwise "
+          f"(gradients of another sign or within {LM_CPU_TOL} of 0); "
+          f"{len(flips)} expert choices flipped, smallest top-k margin "
+          f"{out['min_margin']:.2e} ({out['seconds']:.1f}s, the CPU's step "
+          f"{cpu_s:.1f}s)", flush=True)
+    return out
+
+
+def lm_train_phase(device, case=segment_case) -> dict:
+    """Phase 12: LM training at published widths (``LM_TRAIN_RUNS``) through
+    ``lm_train_case``, the card against the CPU
+    (``lm_train_card_vs_cpu``), then the train CLI (``--arch stablelm-1.6b
+    --reduced --steps 5``, its count set to 0 just before and read just
+    after). TF32 off. Returns the table and the segment_reduce launches of
+    the training runs and the CLI."""
+    import gc
+    import torch
+    from repro_torch.kernels import segment_reduce
+    from repro_torch.launch import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = {arch: lm_train_case(device, arch, depth, case)
+            for arch, depth in LM_TRAIN_RUNS}
+    card_vs_cpu = lm_train_card_vs_cpu(device)
+    segment_reduce.launches = 0
+    losses = train.main(["--arch", "stablelm-1.6b", "--reduced", "--steps",
+                         "5", "--device", "cuda"])
+    cli_launches = segment_reduce.launches
+    if not losses[-1] < losses[0] or cli_launches != 5:
+        fail(f"phase 12: train CLI stablelm-1.6b --reduced: losses {losses},"
+             f" {cli_launches} segment_reduce launches (one a step)")
+    print(f"[chip_smoke] phase 12: train CLI stablelm-1.6b --reduced losses "
+          f"{[round(x, 5) for x in losses]}", flush=True)
+    return dict(runs=runs, card_vs_cpu=card_vs_cpu, cli_losses=losses,
+                launches=sum(r["segment_reduce_launches"]
+                             for r in runs.values()) + cli_launches)
 
 
 def same_runs(what: str, got, want, keys) -> None:
@@ -2391,7 +2721,38 @@ def commongraph_kernel_check(inputs, n: int) -> dict:
     return out
 
 
-def commongraph_phase(device, shapes=COMMONGRAPH_SHAPES_RUN,
+def host_worker() -> None:
+    """Start of ``main``'s spawned process for host inputs: two threads,
+    so that it takes few of the cores the phases beside it run on."""
+    import torch
+    torch.set_num_threads(2)
+
+
+def commongraph_host_edges(shape_id: str):
+    """Phase 3d's input: ``shape_id``'s edges (``commongraph_edges``, seed
+    0, one device) as numpy arrays, and the seconds their generation took.
+    Numpy on the host (84-110 s for window_64x), no card: ``main`` runs it
+    in a spawned process beside phases 2-3c."""
+    from repro_torch.configs.commongraph import commongraph_edges
+    t0 = time.perf_counter()
+    cg, delta, lane_valid = commongraph_edges(shape_id, 1, seed=0)
+    arrays = ([t.numpy() for t in cg], [t.numpy() for t in delta],
+              lane_valid.numpy())
+    return arrays, time.perf_counter() - t0
+
+
+def host_graph(shape_id: str):
+    """Phases 5 and 6's input: ``shape_id``'s host graph
+    (``configs.gnn_family.shape_graph``, seed 0) and the seconds it took,
+    numpy (32-38 s for minibatch_lg), built in ``main``'s spawned process
+    as phase 3d's edges are."""
+    from repro_torch.configs.gnn_family import shape_graph
+    t0 = time.perf_counter()
+    graph = shape_graph(shape_id, 0)
+    return graph, time.perf_counter() - t0
+
+
+def commongraph_phase(device, host_edges, shapes=COMMONGRAPH_SHAPES_RUN,
                       extra_meshes=None) -> dict:
     """Phase 3d: the paper's engine at production scale
     (``configs/commongraph.py``), each shape at its full published size,
@@ -2406,18 +2767,19 @@ def commongraph_phase(device, shapes=COMMONGRAPH_SHAPES_RUN,
     the cell on a mesh naming the card four times (and on every card where
     there are two or more, and on ``extra_meshes``) equal to the unmeshed
     step bit for bit; then relax_multi at the cell's launch shapes against
-    its plain version."""
+    its plain version. ``host_edges``: {shape: ``commongraph_host_edges``
+    of it}."""
     import statistics
     import torch
     from repro_torch.configs.commongraph import (
         COMMONGRAPH_SHAPES,
         SEMIRING,
         SOURCE,
-        commongraph_edges,
         commongraph_inputs,
         lane_view,
         make_commongraph_cell,
     )
+    from repro_torch.graph.edgeset import EdgeBlock
     from repro_torch.graph.engine import ShardSeconds, host_sync, run_to_fixpoint
     from repro_torch.kernels import edge_relax, relax_multi
     from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR
@@ -2433,9 +2795,10 @@ def commongraph_phase(device, shapes=COMMONGRAPH_SHAPES_RUN,
         sh = COMMONGRAPH_SHAPES[shape_id]
         s, n = sh["n_snapshots"], sh["n_nodes"]
         tag = f"phase 3d {shape_id}"
-        t0 = time.perf_counter()
-        edges = commongraph_edges(shape_id, 1, seed=0)
-        gen_s = time.perf_counter() - t0
+        (cg, delta, lane_valid), gen_s = host_edges[shape_id]
+        edges = (EdgeBlock(*map(torch.from_numpy, cg)),
+                 EdgeBlock(*map(torch.from_numpy, delta)),
+                 torch.from_numpy(lane_valid))
         t0 = time.perf_counter()
         inputs = host_sync(commongraph_inputs(shape_id, 1, 0, device, edges))
         start_s = time.perf_counter() - t0
@@ -2453,8 +2816,8 @@ def commongraph_phase(device, shapes=COMMONGRAPH_SHAPES_RUN,
         print(f"[chip_smoke] {tag}: {s} snapshots (bucket {sb}), {n} "
               f"vertices, {sh['cg_edges']} common-graph edges, "
               f"{sh['delta_edges']} Δ edges per lane; generated in "
-              f"{gen_s:.1f}s (host), uploaded and start state (SSSP fixpoint "
-              f"of the common graph) in {start_s:.1f}s", flush=True)
+              f"{gen_s:.1f}s (host), uploaded and start state (SSSP "
+              f"fixpoint of the common graph) in {start_s:.1f}s", flush=True)
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2899,6 +3262,16 @@ def main() -> None:
     _build.load_library()
     print(f"[chip_smoke] phase 1: built {lib.name} in "
           f"{time.perf_counter() - t0:.1f}s; card: {card_line()}", flush=True)
+    # phase 3d's edges and phases 5-6's graph, numpy on the host only,
+    # built in a spawned process from here on, beside phases 2-3c
+    generator = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"),
+        initializer=host_worker)
+    edges_made = {shape_id: generator.submit(commongraph_host_edges, shape_id)
+                  for shape_id in COMMONGRAPH_SHAPES_RUN}
+    graph_made = generator.submit(host_graph, "minibatch_lg")
+    print("[chip_smoke] phase 1: phase 3d's edges and phases 5-6's graph "
+          "are being built on the host in a spawned process", flush=True)
 
     # 2. kernels vs plain
     t0 = time.perf_counter()
@@ -2980,7 +3353,10 @@ def main() -> None:
     # 3d. the CommonGraph cell at production scale, counters zeroed before
     # each shape's first step and read after its checks
     t0 = time.perf_counter()
-    commongraph_row = commongraph_phase(device)
+    commongraph_row = commongraph_phase(
+        device, {shape_id: made.result() for shape_id, made in
+                 edges_made.items()})
+    del edges_made
     print(f"[chip_smoke] phase 3d: launches {commongraph_row['launches']}; "
           f"done in {time.perf_counter() - t0:.1f}s", flush=True)
 
@@ -3020,7 +3396,9 @@ def main() -> None:
 
     # 5. segment_reduce vs plain
     t0 = time.perf_counter()
-    segment_row = segment_phase(device)
+    graph = graph_made.result()
+    generator.shutdown()
+    segment_row = segment_phase(device, graph)
     torch.cuda.empty_cache()
     print(f"[chip_smoke] phase 5 done in {time.perf_counter() - t0:.1f}s",
           flush=True)
@@ -3029,8 +3407,9 @@ def main() -> None:
     t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    segment_row["launches"], segment_row["gnn_runs"] = gnn_phase(
-        device, segment_row["sampled_graph_setup_s"])
+    segment_row["launches"], segment_row["gnn_runs"] = gnn_phase(device,
+                                                                 graph)
+    del graph
     gnn_launches = segment_row["launches"]
     print(f"[chip_smoke] phase 6: {segment_row['launches']} segment_reduce "
           f"launches over {len(train.SHAPE_RUNS)} training runs; done in "
@@ -3100,7 +3479,19 @@ def main() -> None:
           f"launches over {len(LM_RUNS)} LM configs; done in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 12. records
+    # 12. LM training, the segment_reduce count zeroed before each run's
+    # steps and before the CLI and read after each
+    t0 = time.perf_counter()
+    lm_train_row = lm_train_phase(device)
+    segment_row["launches"] += lm_train_row["launches"]
+    segment_row["lm_training"] = lm_train_row
+    segment_row["launches_by_phase"]["12 lm training"] = \
+        lm_train_row["launches"]
+    print(f"[chip_smoke] phase 12: {lm_train_row['launches']} segment_reduce "
+          f"launches over {len(LM_TRAIN_RUNS)} LM training runs and the "
+          f"train CLI; done in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 13. records
     # each path's launches: phase 3's main path, phase 3b's service and
     # calibration, phase 3c's sharded and unsharded runs, phase 3d's
     # CommonGraph cell, phase 4b's ingestion

@@ -51,7 +51,9 @@ def main(argv=None) -> None:
     print(f"[commongraph] card: {card}; {torch.cuda.device_count()} card(s); "
           f"kernels built in {time.perf_counter() - t0:.1f}s", flush=True)
     t0 = time.perf_counter()
-    phase = chip_smoke.commongraph_phase(torch.device("cuda", 0),
+    host_edges = {shape_id: chip_smoke.commongraph_host_edges(shape_id)
+                  for shape_id in args.shapes}
+    phase = chip_smoke.commongraph_phase(torch.device("cuda", 0), host_edges,
                                          shapes=tuple(args.shapes))
     out = dict(card=card, cards=torch.cuda.device_count(),
                wall_s=time.perf_counter() - t0, phase_3d=phase)

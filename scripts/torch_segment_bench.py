@@ -70,7 +70,8 @@ def child(tree: str, train: bool) -> None:
     if not torch.cuda.is_available():
         chip_smoke.fail("needs an NVIDIA GPU")
     device = torch.device("cuda", 0)
-    shapes = chip_smoke.segment_phase(device, bench_case)["shapes"]
+    graph = chip_smoke.host_graph("minibatch_lg")
+    shapes = chip_smoke.segment_phase(device, graph, bench_case)["shapes"]
     torch.cuda.empty_cache()
     batch = shape_batch(get_arch("dien")[0], "train_batch", DataCursor(0, 0),
                         device, DIEN_TRAIN_BATCH)
@@ -79,7 +80,7 @@ def child(tree: str, train: bool) -> None:
     steps = {}
     if train:
         torch.cuda.empty_cache()
-        steps = chip_smoke.gnn_phase(device)[1]
+        steps = chip_smoke.gnn_phase(device, graph)[1]
         torch.cuda.empty_cache()
         steps["dien/train_batch"] = chip_smoke.dien_train_phase(device)[2]
     print(json.dumps({"card": chip_smoke.card_line(), "shapes": shapes,

@@ -90,13 +90,15 @@ def shape_graph(shape_id: str, seed: int) -> NeighborSampler:
 
 
 def shape_batch(cfg: GNNConfig, shape_id: str, cursor: DataCursor,
-                device: str | torch.device = "cuda") -> dict:
+                device: str | torch.device = "cuda",
+                graph: NeighborSampler | None = None) -> dict:
     """One padded batch of ``shape_id`` for the shape-bound ``cfg`` (see
     ``_arch_shape_cfg``), on ``device``, from ``cursor``'s generators.
 
-    A ``minibatch`` shape samples ``shape_graph(shape_id, cursor.seed)``:
-    the sampler's sentinel ``dst == n_local`` becomes the padded node
-    count, the ``dst == n`` of every shape. GraphCast's grid
+    A ``minibatch`` shape samples ``graph``, by default
+    ``shape_graph(shape_id, cursor.seed)``: the sampler's sentinel ``dst ==
+    n_local`` becomes the padded node count, the ``dst == n`` of every
+    shape. GraphCast's grid
     is the shape's graph (a sampled batch's subgraph); its mesh has
     ``max(n // 4, 42)`` nodes and ``4 * mesh`` edges, with random
     grid->mesh destinations, mesh edges and mesh->grid sources, and
@@ -104,7 +106,9 @@ def shape_batch(cfg: GNNConfig, shape_id: str, cursor: DataCursor,
     """
     sh = GNN_SHAPES[shape_id]
     if sh["kind"] == "minibatch":
-        batch = gnn_sampled_batch(cursor, shape_graph(shape_id, cursor.seed),
+        if graph is None:
+            graph = shape_graph(shape_id, cursor.seed)
+        batch = gnn_sampled_batch(cursor, graph,
                                   sh["batch_nodes"],
                                   sh["fanout"], cfg.d_out, cfg.task,
                                   cfg.d_edge, device=device)

@@ -1,6 +1,5 @@
 """Deterministic synthetic data of the port: every feeder is a function of
-(seed, step), built on the device it is given. ``lm_batch`` waits for
-LM training (ROADMAP A10.3)."""
+(seed, step), built on the device it is given."""
 
 from repro_torch.data.pipeline import (
     DataCursor,
@@ -8,9 +7,11 @@ from repro_torch.data.pipeline import (
     gnn_full_batch,
     gnn_molecule_batch,
     gnn_sampled_batch,
+    lm_batch,
     sample_subgraph,
     uniform_graph,
 )
 
 __all__ = ["DataCursor", "dien_batch", "gnn_full_batch", "gnn_molecule_batch",
-           "gnn_sampled_batch", "sample_subgraph", "uniform_graph"]
+           "gnn_sampled_batch", "lm_batch", "sample_subgraph",
+           "uniform_graph"]

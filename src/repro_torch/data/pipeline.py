@@ -1,4 +1,4 @@
-"""Synthetic batch feeders for the GNN and recsys families (seed+step
+"""Synthetic batch feeders for the LM, GNN and recsys families (seed+step
 deterministic).
 
 Counterpart of ``repro.data.pipeline``: the same keys, shapes, dtypes and
@@ -59,6 +59,17 @@ def _randint(gen, high: int, shape, low: int = 0):
 
 def _randn(gen, shape):
     return torch.randn(shape, generator=gen, device=gen.device)
+
+
+def lm_batch(cursor: DataCursor, batch: int, seq: int, vocab: int, *,
+             device: str | torch.device = "cuda"):
+    """Token/label pair: int32 tokens [batch, seq] uniform in ``[0,
+    vocab)``; labels are the next-token shift, -1 (masked) in the last
+    position."""
+    gen = cursor.generator(device)
+    toks = _randint(gen, vocab, (batch, seq))
+    last = torch.full((batch, 1), -1, dtype=torch.int32, device=gen.device)
+    return {"tokens": toks, "labels": torch.cat([toks[:, 1:], last], dim=1)}
 
 
 def gnn_full_batch(cursor: DataCursor, n_nodes: int, n_edges: int,

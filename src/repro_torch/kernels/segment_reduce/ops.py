@@ -17,6 +17,8 @@ from its sums, which go through this kernel again:
 ``gather_rows(h, idx, layout)`` is ``h[idx]`` whose backward is this
 kernel's sum by ``idx``. PyTorch's own index backward scatters with atomics
 on CUDA, which would make the card's gradients differ from run to run.
+Gradient rows of another dtype (the LMs' bfloat16) are widened to float32,
+summed and cast back once.
 
 The kernel (see the source note in ``csrc/segment_reduce.cu``):
 
@@ -204,14 +206,18 @@ class _GatherRows(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _launch(g.contiguous(), ctx.layout, "sum"), None, None
+        rows = g.float().contiguous()
+        return _launch(rows, ctx.layout, "sum").to(g.dtype), None, None
 
 
 def gather_rows(h: torch.Tensor, idx: torch.Tensor,
                 layout: SegmentLayout) -> torch.Tensor:
     """``h[idx]`` for h [N, D] and int32 ids in ``[0, N)``; ``layout`` is
     ``segment_layout(idx, N)``, and the backward sums the gradient rows by
-    ``idx`` in edge order with ``segment_reduce``'s kernel."""
+    ``idx`` in edge order with ``segment_reduce``'s kernel, in float32
+    (cast once to ``h``'s dtype). A layout of ids where some are outside
+    ``[0, N)`` drops those rows' gradients: the rows are still gathered
+    by ``idx``, but add nothing."""
     if layout.num_segments != h.shape[0] or layout.seg.shape != idx.shape:
         raise ValueError(f"layout is for {layout.num_segments} rows and "
                          f"{layout.seg.shape[0]} ids, not {h.shape[0]} and "

@@ -1,5 +1,5 @@
-"""End-to-end training driver of the port (``--arch <id>``): the GNN and
-recsys families.
+"""End-to-end training driver of the port (``--arch <id>``): the LM, GNN
+and recsys families.
 
 Counterpart of ``repro.launch.train`` with the same flags, plus
 ``--device`` (default ``cuda``; the CPU only when asked). It builds a
@@ -7,21 +7,25 @@ Counterpart of ``repro.launch.train`` with the same flags, plus
 device, and runs ``train_step`` — forward, backward, ``adamw_update`` —
 with checkpoint/restart. On CUDA every GNN aggregation and every row
 gather's backward runs in the ``segment_reduce`` kernel, and DIEN's pooled
-history in the ``embedding_bag`` kernel. LM training waits for ROADMAP A10.3
-(the LM family serves through ``launch/serve.py --arch``).
+history in the ``embedding_bag`` kernel; an LM's MoE combine and the
+gradients of its embedding lookup and MoE dispatch run in
+``segment_reduce``, and each layer is recomputed in the backward.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch pna --steps 5 \\
         --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --arch dien --reduced \\
         --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --arch stablelm-1.6b \\
+        --reduced --device cpu
 
 ``configs.gnn_family.shape_batch`` gives the batches of the named GNN
 shapes (ogb_products, molecule, full_graph_sm, and minibatch_lg's sampled
 subgraphs) for ``train_step``, and ``shape_run`` sets up a full-width run
 on one of them; ``dien_run`` does
-the same for DIEN's shapes (``configs.recsys_family``). This driver, like
-the reference's, trains a GNN on one small random graph and DIEN on one
-``--batch``-row batch.
+the same for DIEN's shapes (``configs.recsys_family``), ``lm_run`` for an
+LM at its published widths. This driver, like the reference's, trains a
+GNN on one small random graph, DIEN on one ``--batch``-row batch and an
+LM on one ``--batch`` x ``--seq`` batch of tokens.
 """
 
 from __future__ import annotations
@@ -34,9 +38,10 @@ import torch
 
 from repro_torch.configs import get_arch, recsys_family, reduced_config
 from repro_torch.configs.gnn_family import _arch_shape_cfg, shape_batch
-from repro_torch.data import DataCursor, dien_batch, gnn_full_batch
+from repro_torch.data import DataCursor, dien_batch, gnn_full_batch, lm_batch
 from repro_torch.models.dien import dien_loss, init_dien_params
 from repro_torch.models.gnn import gnn_loss, init_gnn_params
+from repro_torch.models.transformer import init_lm_params, lm_loss
 from repro_torch.optim import adamw_init, adamw_update
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.tree import tree_leaves, tree_unflatten
@@ -60,20 +65,27 @@ SHAPE_RUNS = (("gcn-cora", "ogb_products", 1e-3), ("pna", "molecule", 1e-3),
 # since the GRU and AUGRU keep ~100 steps of activations per row for the
 # backward.
 DIEN_TRAIN_BATCH = 16_384
+# An LM's full-width training batch on one card: train_4k's 4,096-token
+# sequences, its 256-row global batch cut to 4 (16,384 tokens a step).
+LM_TRAIN_BATCH, LM_TRAIN_SEQ = 4, 4096
 
 
 def build(arch: str, reduced: bool, batch: int, seq: int,
           device: str | torch.device = "cuda"):
     """(cfg, family, params_init(gen), loss_fn(params, batch),
-    data_fn(cursor)) for a GNN or recsys architecture; ``batch`` sizes the
-    recsys batch, ``seq`` waits for LM training."""
+    data_fn(cursor)) for an LM, GNN or recsys architecture; ``batch`` sizes
+    the LM and recsys batches, ``seq`` the LM's sequences."""
     cfg, family = reduced_config(arch) if reduced else get_arch(arch)
     if family == "lm":
-        raise NotImplementedError(
-            f"--arch {arch}: LM training (lm_loss gradients, AdamW over "
-            "bfloat16 parameters, lm_batch) is not ported yet "
-            "(ROADMAP A10.3); the LM family serves through launch/serve.py "
-            "--arch")
+        def lm_init(gen):
+            return init_lm_params(gen, cfg)
+
+        def lm_loss_fn(p, b):
+            return lm_loss(cfg, p, b["tokens"], b["labels"])
+
+        def lm_data(cursor):
+            return lm_batch(cursor, batch, seq, cfg.vocab, device=device)
+        return cfg, family, lm_init, lm_loss_fn, lm_data
     if family == "recsys":
         def dien_init(gen):
             return init_dien_params(gen, cfg)
@@ -134,16 +146,18 @@ def _graphcastify(b, n, e, cfg, cursor, device):
 
 
 def shape_run(arch: str, shape_id: str, device: str | torch.device = "cuda",
-              seed: int = 0):
+              seed: int = 0, graph=None):
     """(cfg, batch, params, opt, loss_fn, batch_at) of ``arch`` at its full
     width on ``shape_id``: ``batch_at(step)`` is the batch of
     ``DataCursor(seed, step)`` (a fresh sampled subgraph per step on a
-    ``minibatch`` shape), ``batch`` is ``batch_at(0)``, the parameters come
-    from a generator on ``device`` seeded with ``seed``."""
+    ``minibatch`` shape, from ``graph`` where given: see ``shape_batch``),
+    ``batch`` is ``batch_at(0)``, the parameters come from a generator on
+    ``device`` seeded with ``seed``."""
     cfg = _arch_shape_cfg(get_arch(arch)[0], shape_id)
 
     def batch_at(step):
-        return shape_batch(cfg, shape_id, DataCursor(seed, step), device)
+        return shape_batch(cfg, shape_id, DataCursor(seed, step), device,
+                           graph)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     params = init_gnn_params(gen, cfg)
@@ -173,19 +187,59 @@ def dien_run(shape_id: str, device: str | torch.device = "cuda",
     return cfg, data, params, adamw_init(params), loss_fn
 
 
+def expandable_segments(device: str | torch.device) -> None:
+    """On a CUDA ``device``, let the caching allocator's new segments grow
+    in place (``expandable_segments``) for the rest of the process, after
+    handing its cached blocks back. An LM's training step frees and takes
+    float32 [B, H, S, S] blocks of up to 8 GiB in turn; in fixed segments
+    21 GiB of an H100 80GB stayed reserved and unused until stablelm's
+    4 x 4,096-token step ran out of memory."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+        torch._C._accelerator_setAllocatorSettings("expandable_segments:True")
+
+
+def lm_run(arch: str, device: str | torch.device = "cuda", seed: int = 0,
+           batch: int = LM_TRAIN_BATCH, seq: int = LM_TRAIN_SEQ,
+           n_layers: int | None = None):
+    """(cfg, batch, params, opt, loss_fn) of the LM ``arch`` at its
+    published widths, its depth cut to ``n_layers`` when given: seeded
+    weights (bfloat16) from a generator on ``device`` seeded with
+    ``seed``, and the ``batch`` x ``seq`` tokens of ``lm_batch`` at
+    ``DataCursor(seed, 0)``. Turns on ``expandable_segments``."""
+    expandable_segments(device)
+    cfg = get_arch(arch)[0]
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = init_lm_params(gen, cfg)
+    data = lm_batch(DataCursor(seed, 0), batch, seq, cfg.vocab, device=device)
+
+    def loss_fn(p, b):
+        return lm_loss(cfg, p, b["tokens"], b["labels"])
+    return cfg, data, params, adamw_init(params), loss_fn
+
+
+def loss_and_grads(loss_fn, params, batch):
+    """``loss_fn(params, batch)`` (detached) and its gradient for every
+    leaf of ``params``, as a tree shaped like it."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    loss = loss_fn(tree_unflatten(params, leaves), batch)
+    grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(params, grads)
+
+
 def train_step(loss_fn, params, opt, batch, *, lr: float,
                weight_decay: float = 0.0):
     """One step: loss and gradients of ``loss_fn(params, batch)``, then
     ``adamw_update``. Returns ``(params, opt, loss, grad_norm)``; the new
     parameters are plain tensors (no autograd history)."""
-    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    loss = loss_fn(tree_unflatten(params, leaves), batch)
-    grads = torch.autograd.grad(loss, leaves)
+    loss, grads = loss_and_grads(loss_fn, params, batch)
     with torch.no_grad():
-        new_p, new_o, gnorm = adamw_update(
-            tree_unflatten(params, grads), opt, params, lr=lr,
-            weight_decay=weight_decay)
-    return new_p, new_o, loss.detach(), gnorm
+        new_p, new_o, gnorm = adamw_update(grads, opt, params, lr=lr,
+                                           weight_decay=weight_decay)
+    return new_p, new_o, loss, gnorm
 
 
 def main(argv=None):
@@ -210,6 +264,8 @@ def main(argv=None):
 
     cfg, family, params_init, loss_fn, data_fn = build(
         args.arch, args.reduced, args.batch, args.seq, device)
+    if family == "lm":
+        expandable_segments(device)
 
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)

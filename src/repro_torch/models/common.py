@@ -64,19 +64,44 @@ def embed_init(gen: torch.Generator | None, vocab: int, d: int,
     return normal_init(gen, (vocab, d), 0.02, dtype, device)
 
 
+class _MatmulF32(torch.autograd.Function):
+    """``torch.mm``/``torch.bmm`` of two bfloat16 operands with
+    ``out_dtype=torch.float32``, differentiable (PyTorch has no derivative
+    for that overload). The backward is JAX's transpose of a
+    ``preferred_element_type=jnp.float32`` dot: each operand's gradient is
+    the float32 product of the float32 cotangent and the other operand
+    widened to float32, cast once to the operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        mm = torch.mm if a.dim() == 2 else torch.bmm
+        return mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        if ctx.needs_input_grad[0]:
+            ga = torch.matmul(g, b.float().mT).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            gb = torch.matmul(a.float().mT, g).to(b.dtype)
+        return ga, gb
+
+
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with a float32 result for 2-D or batched 3-D operands:
     the reference's ``preferred_element_type=jnp.float32``. Float32
     operands multiply as they are; bfloat16 ones on the card go through
     ``torch.mm``/``torch.bmm`` with ``out_dtype=torch.float32`` (products
     accumulated and returned in float32, no bfloat16 rounding of the
-    result), and on the CPU, whose build has no such overload, are widened
-    first (a bfloat16 product is exact in float32, so only the order of
-    the float32 sums differs). Operands of two dtypes are both widened, as
-    JAX promotes them."""
+    result; through ``_MatmulF32``, differentiable), and on the CPU,
+    whose build has no such overload, are widened first (a bfloat16
+    product is exact in float32, so only the order of the float32 sums
+    differs). Operands of two dtypes are both widened, as JAX promotes
+    them."""
     if a.device.type == "cuda" and a.dtype == b.dtype != torch.float32:
-        mm = torch.mm if a.dim() == 2 else torch.bmm
-        return mm(a, b, out_dtype=torch.float32)
+        return _MatmulF32.apply(a, b)
     return torch.matmul(a.float(), b.float())
 
 
@@ -140,16 +165,42 @@ def mlp_apply(p: dict, x: torch.Tensor, act: Callable = torch.relu,
     return x
 
 
+class _SoftmaxCrossEntropy(torch.autograd.Function):
+    """The mean cross entropy of float32 logits [..., V] over the labels
+    that are not masked, whose backward forms the gradient in one tensor
+    of the logits' size: ``exp(x - lse) * w`` less ``w`` at each label,
+    ``w`` the upstream gradient over the valid count on a valid row and 0
+    on a masked one (JAX's gradient of ``logsumexp`` less the label's
+    logit, the same bits as autograd's). Autograd's own backward of these
+    operations holds three temporaries of the logits' size: for an LM
+    step's 16,384 x 151,936 logits, 9.3 GiB each."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        lse = torch.logsumexp(logits, dim=-1)
+        idx = labels.clamp(min=0).long()[..., None]
+        ll = torch.take_along_dim(logits, idx, dim=-1)[..., 0]
+        mask = labels >= 0
+        zero = torch.zeros((), device=logits.device)
+        count = torch.clamp(torch.sum(mask), min=1)
+        ctx.save_for_backward(logits, lse, idx, mask, count)
+        return torch.sum(torch.where(mask, lse - ll, zero)) / count
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, idx, mask, count = ctx.saved_tensors
+        zero = torch.zeros((), device=g.device)
+        w = torch.where(mask, g / count, zero)[..., None]
+        grad = (logits - lse[..., None]).exp_().mul_(w)
+        # one label a row: written back, no atomic add on the card
+        return grad.scatter_(-1, idx, grad.gather(-1, idx) - w), None
+
+
 def softmax_cross_entropy(logits: torch.Tensor,
                           labels: torch.Tensor) -> torch.Tensor:
-    """Mean CE over valid labels (label < 0 is masked)."""
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.take_along_dim(
-        logits, labels.clamp(min=0).long()[..., None], dim=-1)[..., 0]
-    mask = labels >= 0
-    nll = torch.where(mask, lse - ll, torch.zeros((), device=logits.device))
-    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
+    """Mean CE over valid labels (label < 0 is masked); differentiable,
+    see ``_SoftmaxCrossEntropy``."""
+    return _SoftmaxCrossEntropy.apply(logits.float(), labels)
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:

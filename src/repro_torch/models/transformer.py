@@ -36,11 +36,24 @@ How the port differs in form, not in what it computes:
 * Decode writes the new key and value into the cache in place and returns
   the cache, as the reference returns its updated copy.
 
-Dropped: the reference's ``constrain`` (sharding annotations), ``remat``
-(rematerialization for the backward) and the ``scan_unroll`` and
-``expert_zero1`` config knobs (an XLA roofline switch and an expert
-sharding plan), which do nothing on one card. Training (``lm_loss``'s
-gradients) waits for ROADMAP A10.3.
+Training: ``lm_loss`` is differentiable. With gradients recorded,
+``lm_forward`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, the reference's ``remat=True``): routing,
+capacity positions and the dispatch's layout are built again inside the
+layer, so the recomputation gives the same bits (it stops once it has
+rebuilt what the backward reads, before the combine). The softmaxes run
+in place through ``_Softmax`` (``jax.nn.softmax``'s gradient rule), which
+saves nothing where no gradient is recorded (prefill, decode). The two
+gathers, the embedding lookup and the MoE dispatch, sum their row
+gradients by id in ``segment_reduce``'s kernel (``gather_rows``): in
+order, in float32, cast once to the model's dtype. The reference's
+bfloat16 scatter-adds round every partial sum (ROADMAP §C); in float32
+the sums equal theirs bit for bit. PyTorch's own index backward adds with
+atomics on the card, in an order that changes from run to run.
+
+Dropped: the reference's ``constrain`` (sharding annotations) and the
+``scan_unroll`` and ``expert_zero1`` config knobs (an XLA roofline switch
+and an expert sharding plan), which do nothing on one card.
 """
 
 from __future__ import annotations
@@ -50,8 +63,10 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import segment_reduce
+from repro_torch.kernels.segment_reduce import gather_rows, segment_layout
 from repro_torch.models.common import (
     embed_init,
     matmul_f32,
@@ -61,7 +76,7 @@ from repro_torch.models.common import (
     squared_relu_ffn,
     swiglu,
 )
-from repro_torch.tree import tree_leaves, tree_map
+from repro_torch.tree import tree_leaves, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +240,45 @@ def _softmax_(scores: torch.Tensor) -> torch.Tensor:
     return scores.div_(scores.sum(dim=-1, keepdim=True))
 
 
+class _Softmax(torch.autograd.Function):
+    """``_softmax_`` with ``jax.nn.softmax``'s gradient: the forward in
+    place on its input, the backward ``y * g - y * sum(y * g)`` (JAX's
+    custom JVP, transposed; the max is a constant) from the saved output
+    alone, so a layer's backward holds one float32 [B, H, S, S] tensor of
+    the forward, not the exponentials and their sums."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.mark_dirty(x)
+        y = _softmax_(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        yg = g * y
+        return yg.addcmul_(y, yg.sum(dim=-1, keepdim=True), value=-1.0)
+
+
+def _gather(h: torch.Tensor, ids: torch.Tensor,
+            keep: torch.Tensor | None = None) -> torch.Tensor:
+    """``h[ids]`` for h [N, D] and int32 ids in ``[0, N)``. When a gradient
+    is recorded, the backward sums the row gradients by id in
+    ``segment_reduce``'s kernel (``gather_rows``) in the order of ``ids``;
+    the rows where ``keep`` is False add nothing."""
+    if not (torch.is_grad_enabled() and h.requires_grad):
+        return h.index_select(0, ids)
+    seg = ids if keep is None else torch.where(keep, ids, -1)
+    return gather_rows(h, ids, segment_layout(seg, h.shape[0]))
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` [...]: [..., D] (``_gather``)."""
+    rows = _gather(table, tokens.reshape(-1).to(torch.int32))
+    return rows.view(tokens.shape + (table.shape[1],))
+
+
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("...d,dhk->...hk", x, w)`` in float32."""
     d, h, k = w.shape
@@ -240,20 +294,22 @@ def _out_project(o: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """``einsum("bqhk,bshk->bhqs", q, k)`` in float32."""
+    """``einsum("bqhk,bshk->bhqs", q, k)`` in float32, as [B * H, q, s]:
+    the product's own tensor, not a view of it, so the scale, mask and
+    softmax rewrite it in place without autograd copying its gradient
+    (an in-place op on a view is recorded on the whole base)."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     return matmul_f32(q.transpose(1, 2).reshape(b * h, sq, hd),
-                      k.permute(0, 2, 3, 1).reshape(b * h, hd, sk)).view(
-                          b, h, sq, sk)
+                      k.permute(0, 2, 3, 1).reshape(b * h, hd, sk))
 
 
 def _weighted_values(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``einsum("bhqs,bshk->bqhk", p, v)`` in float32."""
-    b, h, sq, sk = p.shape
-    hd = v.shape[-1]
-    out = matmul_f32(p.reshape(b * h, sq, sk),
-                     v.transpose(1, 2).reshape(b * h, sk, hd))
+    """``einsum("bhqs,bshk->bqhk", p, v)`` in float32, p as [B * H, q,
+    s]."""
+    b, sk, h, hd = v.shape
+    sq = p.shape[1]
+    out = matmul_f32(p, v.transpose(1, 2).reshape(b * h, sk, hd))
     return out.view(b, h, sq, hd).transpose(1, 2)
 
 
@@ -279,7 +335,7 @@ def _attention_train(cfg: LMConfig, lp, x: torch.Tensor):
     else:
         scores = _scores(xq, kf).mul_(scale)
         causal = pos[None, :] <= pos[:, None]            # [q, s]
-        probs = _softmax_(scores.masked_fill_(~causal, -math.inf)).to(dt)
+        probs = _Softmax.apply(scores.masked_fill_(~causal, -math.inf)).to(dt)
         del scores
         out = _weighted_values(probs, vf).to(dt)
     return _out_project(out, lp["wo"]).to(dt), xk, xv
@@ -288,24 +344,29 @@ def _attention_train(cfg: LMConfig, lp, x: torch.Tensor):
 def _chunked_causal_attention(xq, kf, vf, scale: float,
                               chunk: int) -> torch.Tensor:
     """Flash-style online softmax over KV chunks: never forms the [S, S]
-    scores. xq/kf/vf: [B, S, H, Dh] (full heads)."""
+    scores. xq/kf/vf: [B, S, H, Dh] (full heads). The chunk's shift by the
+    running max is in place unless a gradient is recorded (the max's
+    backward reads the scores); the gradient flows through the max, as
+    the reference's does."""
     b, s, h, hd = xq.shape
+    grad = torch.is_grad_enabled() and xq.requires_grad
     q_pos = torch.arange(s, device=xq.device)
-    m = torch.full((b, h, s), -math.inf, device=xq.device)
-    den = torch.zeros((b, h, s), device=xq.device)
+    m = torch.full((b * h, s), -math.inf, device=xq.device)
+    den = torch.zeros((b * h, s), device=xq.device)
     acc = torch.zeros((b, s, h, hd), device=xq.device)
     for lo in range(0, s, chunk):
         sc = _scores(xq, kf[:, lo:lo + chunk]).mul_(scale)
         k_pos = lo + torch.arange(chunk, device=xq.device)
         sc.masked_fill_(~(k_pos[None, :] <= q_pos[:, None]), -math.inf)
         new_m = torch.maximum(m, sc.amax(dim=-1))
-        p = sc.sub_(new_m[..., None]).exp_()
+        p = (sc - new_m[..., None] if grad else sc.sub_(new_m[..., None])
+             ).exp_()
         corr = torch.exp(m - new_m)
         den = den * corr + p.sum(dim=-1)
         pv = _weighted_values(p.to(vf.dtype), vf[:, lo:lo + chunk])
-        acc = acc * corr.transpose(1, 2)[..., None] + pv
+        acc = acc * corr.view(b, h, s).transpose(1, 2)[..., None] + pv
         m = new_m
-    out = acc / den.transpose(1, 2)[..., None]
+    out = acc / den.view(b, h, s).transpose(1, 2)[..., None]
     return out.to(vf.dtype)
 
 
@@ -327,7 +388,7 @@ def _route(cfg: LMConfig, lp, xg: torch.Tensor):
     probabilities renormalized to sum to 1, and their experts."""
     g, t, d = xg.shape
     logits = matmul_f32(xg.reshape(g * t, d), lp["router"])
-    probs = _softmax_(logits).view(g, t, -1)
+    probs = _Softmax.apply(logits).view(g, t, -1)
     top_p, top_i = _top_k(probs, cfg.top_k)
     top_p = top_p / torch.clamp(top_p.sum(dim=-1, keepdim=True), min=1e-9)
     return top_p, top_i
@@ -351,6 +412,21 @@ def _scatter_drop(n_groups: int, width: int, index: torch.Tensor,
     out = torch.zeros((n_groups, width + 1), dtype=src.dtype,
                       device=src.device)
     return out.scatter_(1, index, src)[:, :width]
+
+
+def _dispatch(xg: torch.Tensor, slot_token: torch.Tensor,
+              slot_valid: torch.Tensor) -> torch.Tensor:
+    """``take(xg, slot_token) * slot_valid`` per group: xg [G, T, D],
+    slot_token and slot_valid [G, S] -> [G, S, D]. One ``_gather`` over
+    all groups (group ``i``'s tokens are rows ``i * T ...``); an empty
+    slot reads its group's token 0, is zeroed, and adds nothing to the
+    gradient."""
+    n_groups, g_sz, d = xg.shape
+    offset = torch.arange(n_groups, device=xg.device)[:, None] * g_sz
+    ids = (slot_token + offset).reshape(-1).to(torch.int32)
+    xe = _gather(xg.reshape(-1, d), ids, slot_valid.reshape(-1))
+    xe.mul_(slot_valid.reshape(-1, 1).to(xg.dtype))
+    return xe.view(slot_token.shape + (d,))
 
 
 def _combine(yflat: torch.Tensor, slot_gate: torch.Tensor,
@@ -396,8 +472,7 @@ def _moe_ffn(cfg: LMConfig, lp, x: torch.Tensor,
     slot_valid = _scatter_drop(n_groups, e * cap, slot_safe,
                                torch.ones_like(ok))
 
-    xe = torch.gather(xg, 1, slot_token[..., None].expand(-1, -1, d))
-    xe.mul_(slot_valid[..., None].to(dt))
+    xe = _dispatch(xg, slot_token, slot_valid)
 
     # expert FFN: [E, G * cap, D] against the stacked [E, D, F] weights
     xe = xe.view(n_groups, e, cap, d).transpose(0, 1).reshape(
@@ -427,39 +502,61 @@ def _moe_ffn(cfg: LMConfig, lp, x: torch.Tensor,
 # forward / losses
 # ---------------------------------------------------------------------------
 
-def _layer(stack, i: int):
-    return tree_map(lambda a: a[i], stack)
+def _unstack(stack, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked [n, ...] tree, as views
+    (``unbind``: the backward stacks the layers' gradients in one copy)."""
+    parts = [leaf.unbind(0) for leaf in tree_leaves(stack)]
+    return [tree_unflatten(stack, [p[i] for p in parts]) for i in range(n)]
 
 
-def _ffn_stacks(cfg: LMConfig, params):
-    """Per layer, (kind, that layer's FFN parameters): layer ``l`` takes the
-    next dense or MoE entry of its stack."""
-    seen = {"dense": 0, "moe": 0}
-    out = []
-    for kind in cfg.layer_kinds():
-        stack = params["ffn"] if kind == "dense" else params["moe"]
-        out.append((kind, _layer(stack, seen[kind])))
-        seen[kind] += 1
-    return out
+def _layers(cfg: LMConfig, params):
+    """Per layer, (kind, its attention parameters, its FFN parameters):
+    layer ``l`` takes attention ``l`` and the next dense or MoE entry of
+    its stack."""
+    kinds = cfg.layer_kinds()
+    ffn = {kind: iter(_unstack(params["ffn" if kind == "dense" else "moe"],
+                               kinds.count(kind)))
+           for kind in set(kinds)}
+    attn = _unstack(params["attn"], len(kinds))
+    return [(kind, la, next(ffn[kind])) for kind, la in zip(kinds, attn)]
+
+
+def _block(cfg: LMConfig, kind: str, la, lf, x: torch.Tensor,
+           n_groups: int):
+    """One layer over x [B, S, D]: attention, then the dense or MoE FFN,
+    each residual. Returns (x, k, v)."""
+    o, k, v = _attention_train(cfg, la, rms_norm(x, la["ln1"]))
+    x = x + o
+    h = rms_norm(x, la["ln2"])
+    x = x + (_dense_ffn(cfg, lf, h) if kind == "dense"
+             else _moe_ffn(cfg, lf, h, n_groups))
+    return x, k, v
 
 
 def _layer_stack(cfg: LMConfig, params, x: torch.Tensor, n_groups: int,
                  with_cache: bool = False):
     """All layers over x [B, S, D]; ``with_cache`` also returns every
-    layer's (k, v) as ``{"k", "v"}`` [L, B, S, KV, Dh]."""
+    layer's (k, v) as ``{"k", "v"}`` [L, B, S, KV, Dh]. Without it and
+    with a gradient recorded, each layer keeps only its input for the
+    backward and runs again there (non-reentrant ``checkpoint``, as the
+    reference's ``remat=True``; its prefill, which returns the cache, runs
+    with ``remat=False``). The layer draws no random numbers, so no
+    generator state is kept."""
+    remat = not with_cache and torch.is_grad_enabled() and any(
+        leaf.requires_grad for leaf in tree_leaves(params))
     cache = None
     if with_cache:
         b, s, _ = x.shape
         shape = (cfg.n_layers, b, s, cfg.n_kv_heads, cfg.head_dim)
         cache = {"k": torch.empty(shape, dtype=x.dtype, device=x.device),
                  "v": torch.empty(shape, dtype=x.dtype, device=x.device)}
-    for l, (kind, lf) in enumerate(_ffn_stacks(cfg, params)):
-        la = _layer(params["attn"], l)
-        o, k, v = _attention_train(cfg, la, rms_norm(x, la["ln1"]))
-        x = x + o
-        h = rms_norm(x, la["ln2"])
-        x = x + (_dense_ffn(cfg, lf, h) if kind == "dense"
-                 else _moe_ffn(cfg, lf, h, n_groups))
+    for l, (kind, la, lf) in enumerate(_layers(cfg, params)):
+        if remat:
+            x = checkpoint(lambda *a: _block(*a)[0], cfg, kind, la, lf, x,
+                           n_groups, use_reentrant=False,
+                           preserve_rng_state=False)
+            continue
+        x, k, v = _block(cfg, kind, la, lf, x, n_groups)
         if with_cache:
             cache["k"][l] = k
             cache["v"][l] = v
@@ -468,8 +565,9 @@ def _layer_stack(cfg: LMConfig, params, x: torch.Tensor, n_groups: int,
 
 def lm_forward(cfg: LMConfig, params, tokens: torch.Tensor,
                n_groups: int = 1) -> torch.Tensor:
-    """tokens [B, S] -> final hidden [B, S, D]."""
-    x = params["embed"][tokens.long()]
+    """tokens [B, S] -> final hidden [B, S, D]; with a gradient recorded,
+    each layer is recomputed in the backward (``_layer_stack``)."""
+    x = _embed(params["embed"], tokens)
     x, _ = _layer_stack(cfg, params, x, n_groups)
     return rms_norm(x, params["final_ln"])
 
@@ -478,7 +576,7 @@ def lm_prefill(cfg: LMConfig, params, tokens: torch.Tensor,
                n_groups: int = 1):
     """Prefill: last-position logits (float32 [B, V]) and the full KV
     cache ``{"k", "v"}`` [L, B, S, KV, Dh]."""
-    x = params["embed"][tokens.long()]
+    x = _embed(params["embed"], tokens)
     x, cache = _layer_stack(cfg, params, x, n_groups, with_cache=True)
     x = rms_norm(x, params["final_ln"])
     return matmul_f32(x[:, -1], params["lm_head"]), cache
@@ -488,7 +586,7 @@ def lm_loss(cfg: LMConfig, params, tokens: torch.Tensor,
             labels: torch.Tensor, n_groups: int = 1) -> torch.Tensor:
     """Mean next-token cross entropy (labels < 0 masked); with
     ``vocab_chunk``, averaged over sequence chunks whose [B, chunk, V]
-    logits are formed one at a time."""
+    logits are formed one at a time. Differentiable (``lm_forward``)."""
     x = lm_forward(cfg, params, tokens, n_groups)
     b, s, d = x.shape
     head = params["lm_head"]
@@ -526,14 +624,13 @@ def lm_decode_step(cfg: LMConfig, params, cache, tokens: torch.Tensor,
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     g = h // kv
     s_max = cache["k"].shape[2]
-    x = params["embed"][tokens[:, 0].long()]          # [B, D]
+    x = _embed(params["embed"], tokens[:, 0])         # [B, D]
     dt = x.dtype
     scale = 1.0 / math.sqrt(hd)
     invalid = torch.arange(s_max, device=x.device) > pos
     posb = torch.full((b, 1), pos, device=x.device)
 
-    for l, (kind, lf) in enumerate(_ffn_stacks(cfg, params)):
-        lp = _layer(params["attn"], l)
+    for l, (kind, lp, lf) in enumerate(_layers(cfg, params)):
         k_l, v_l = cache["k"][l], cache["v"][l]       # [B, S, KV, Dh]
         hn = rms_norm(x, lp["ln1"])
         q = _rope(_project(hn, lp["wq"]).to(dt)[:, None], posb,

@@ -2,8 +2,10 @@
 
 Counterpart of ``repro.runtime.checkpoint``, with the same file layout and
 manifest. Saves the training state (params, optimizer, data cursor) with
-every tensor moved to host numpy; ``restore`` puts the arrays back as
-tensors on the manager's device. Writes go to a temp file, are fsynced and
+every tensor moved to host numpy (a bfloat16 one, which numpy cannot
+hold, as the int16 view of its bits); ``restore`` puts the arrays back as
+tensors of the same dtype and bits on the manager's device. Writes go to
+a temp file, are fsynced and
 renamed into place, so a crash mid-save never corrupts the latest
 checkpoint: a restart always reads the newest *complete* step.
 """
@@ -11,6 +13,7 @@ checkpoint: a restart always reads the newest *complete* step.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import pickle
@@ -21,6 +24,35 @@ import numpy as np
 import torch
 
 from repro_torch.tree import tree_map
+
+# dtypes numpy has no type for, saved as an integer view of the same width
+_BIT_VIEWS = {torch.bfloat16: torch.int16}
+
+
+@dataclasses.dataclass(frozen=True)
+class _Bits:
+    """A saved tensor of a dtype numpy lacks: its name and its bits."""
+    dtype: str
+    bits: np.ndarray
+
+
+def _to_host(x):
+    if not isinstance(x, torch.Tensor):
+        return x
+    x = x.detach().cpu()
+    if x.dtype in _BIT_VIEWS:
+        return _Bits(str(x.dtype).removeprefix("torch."),
+                     x.view(_BIT_VIEWS[x.dtype]).numpy())
+    return x.numpy()
+
+
+def _to_device(x, device: torch.device):
+    if isinstance(x, _Bits):
+        return torch.from_numpy(x.bits).view(getattr(torch, x.dtype)).to(
+            device)
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x).to(device)
+    return x
 
 
 class CheckpointManager:
@@ -42,9 +74,7 @@ class CheckpointManager:
             return {"steps": []}
 
     def save(self, step: int, state: dict, extra_meta: dict | None = None):
-        host_state = tree_map(
-            lambda x: x.detach().cpu().numpy()
-            if isinstance(x, torch.Tensor) else x, state)
+        host_state = tree_map(_to_host, state)
         payload = pickle.dumps(host_state, protocol=pickle.HIGHEST_PROTOCOL)
         fname = f"step_{step:010d}.ckpt"
         # atomic publish: write temp, fsync, rename
@@ -77,9 +107,7 @@ class CheckpointManager:
             return None
         with open(path, "rb") as f:
             host_state = pickle.load(f)
-        return tree_map(
-            lambda x: torch.from_numpy(x).to(self.device)
-            if isinstance(x, np.ndarray) else x, host_state)
+        return tree_map(lambda x: _to_device(x, self.device), host_state)
 
     def restore_latest(self) -> dict | None:
         man = self._read_manifest()

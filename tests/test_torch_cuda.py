@@ -1006,3 +1006,104 @@ def test_cuda_reduced_lm_serving_matches_cpu(cuda_device, arch):
                     [cpu["prefill_logits"], *cpu["decode_logits"]]):
         assert float((c.cpu() - h).abs().max()) <= 1e-5 * float(
             h.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_lm_gathers_backward_in_the_kernel(cuda_device, dtype):
+    """The LM's two gathers on the card (``transformer._embed`` into a
+    100,352-row table at D = 2,048, ``transformer._dispatch`` with empty
+    slots): each backward is one segment_reduce launch, bit for bit the
+    CPU's gradient (the plain version) from the same rows and ids."""
+    from repro_torch.models import transformer
+    gen = torch.Generator().manual_seed(3)
+    table = torch.randn((100_352, 2048), generator=gen).to(dtype)
+    tokens = torch.randint(0, 100_352, (2, 512), generator=gen,
+                           dtype=torch.int32)
+    xg = torch.randn((2, 64, 2048), generator=gen).to(dtype)
+    slot_token = torch.randint(0, 64, (2, 640), generator=gen)
+    slot_valid = torch.rand((2, 640), generator=gen) < 0.8
+
+    def grads(device):
+        t = table.to(device).requires_grad_()
+        x = xg.to(device).requires_grad_()
+        rows = transformer._embed(t, tokens.to(device))
+        xe = transformer._dispatch(x, slot_token.to(device),
+                                   slot_valid.to(device))
+        ct = [torch.randn(r.shape, generator=torch.Generator().manual_seed(
+            4)).to(dtype).to(device) for r in (rows, xe)]
+        return torch.autograd.grad((rows, xe), (t, x), ct)
+    before = segment_reduce.launches
+    card = grads(cuda_device)
+    assert segment_reduce.launches == before + 2
+    for got, want in zip(card, grads("cpu")):
+        assert got.dtype == dtype and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 96, 80), (3, 64, 96, 80)])
+def test_cuda_matmul_f32_gradient_matches_widened_product(cuda_device,
+                                                          shape):
+    """``matmul_f32`` of bfloat16 operands on the card (``_MatmulF32``):
+    the float32 product of the widened operands, and each gradient the
+    widened product's cast to bfloat16, within 1e-6 of the largest."""
+    from repro_torch.models.common import matmul_f32
+    gen = torch.Generator().manual_seed(5)
+    *batch, m, k, n = shape
+    a = torch.randn((*batch, m, k), generator=gen).bfloat16().to(cuda_device)
+    b = torch.randn((*batch, k, n), generator=gen).bfloat16().to(cuda_device)
+    g = torch.randn((*batch, m, n), generator=gen).to(cuda_device)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got, want = [], []
+        for fn, out in ((matmul_f32, got),
+                        (lambda x, y: torch.matmul(x.float(), y.float()),
+                         want)):
+            x, y = a.clone().requires_grad_(), b.clone().requires_grad_()
+            z = fn(x, y)
+            out += [z, *torch.autograd.grad(z, (x, y), g)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    assert [t.dtype for t in got] == [torch.float32, torch.bfloat16,
+                                      torch.bfloat16]
+    for x, y in zip(got, want):
+        assert float((x - y).abs().max()) <= 1e-6 * float(y.abs().max()) \
+            or torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "stablelm-1.6b"])
+def test_cuda_reduced_lm_train_step_is_deterministic(cuda_device, arch):
+    """A reduced LM in bfloat16 on the card: two runs of a train step
+    from the same state give bit-identical gradients and parameters, with
+    one segment_reduce launch for the embedding's gradient and two per MoE
+    layer; the loss equals the CPU's within 1e-2 relative (bfloat16)."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.data import DataCursor, lm_batch
+    from repro_torch.models.transformer import init_lm_params, lm_loss
+    from repro_torch.optim import adamw_init, adamw_update
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = dataclasses.replace(reduced_config(arch)[0],
+                              param_dtype=torch.bfloat16)
+    host = init_lm_params(torch.Generator().manual_seed(0), cfg)
+    params = tree_map(lambda t: t.to(cuda_device), host)
+    batch = lm_batch(DataCursor(0, 0), 4, 64, cfg.vocab, device=cuda_device)
+
+    def loss_fn(p, b):
+        return lm_loss(cfg, p, b["tokens"], b["labels"])
+    opt = adamw_init(params)
+    runs = []
+    for _ in range(2):
+        before = segment_reduce.launches
+        loss, grads = train.loss_and_grads(loss_fn, params, batch)
+        assert segment_reduce.launches - before == 1 + 2 * cfg.layer_kinds(
+        ).count("moe")
+        new = adamw_update(grads, opt, params, lr=1e-3, weight_decay=0.0)[0]
+        runs.append((loss, tree_leaves(grads), tree_leaves(new)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1] + runs[0][2], runs[1][1] + runs[1][2]):
+        assert torch.equal(a, b)
+    cpu = loss_fn(host, {k: v.cpu() for k, v in batch.items()})
+    assert abs(float(runs[0][0]) - float(cpu)) <= 1e-2 * abs(float(cpu))

@@ -17,6 +17,7 @@ blocks, the config registry, checkpoints and the train CLI on the CPU.
 """
 
 import dataclasses
+import math
 
 import pytest
 
@@ -357,16 +358,25 @@ def test_configs_and_init_shapes_match_reference(arch):
 
 
 def test_registry_names_what_waits():
-    """dien and the LM archs resolve (full and reduced); LM training still
-    waits (ROADMAP A10.3); an unknown id is a KeyError."""
+    """dien and the LM archs resolve (full and reduced); ``build`` gives
+    the LM family (``init_lm_params``, ``lm_loss``, ``lm_batch``); an
+    unknown id is a KeyError."""
     assert tconfigs.get_arch("dien")[1] == "recsys"
     assert tconfigs.reduced_config("dien")[0].seq_len == 10
     for arch in ("llama3.2-3b", "qwen3-moe-30b-a3b"):
         assert tconfigs.get_arch(arch)[1] == "lm"
         cfg, family = tconfigs.reduced_config(arch)
         assert family == "lm" and cfg.d_model == 64 and cfg.n_layers == 2
-        with pytest.raises(NotImplementedError, match="A10.3"):
-            ttrain.build(arch, True, 8, 128, "cpu")
+        got, fam, params_init, loss_fn, data_fn = ttrain.build(
+            arch, True, 8, 128, "cpu")
+        assert (got, fam) == (cfg, "lm")
+        params = params_init(torch.Generator().manual_seed(0))
+        assert tuple(params["embed"].shape) == (cfg.vocab, cfg.d_model)
+        batch = data_fn(DataCursor(0, 0))
+        assert tuple(batch["tokens"].shape) == (8, 128)
+        assert tuple(batch["labels"].shape) == (8, 128)
+        loss = loss_fn(params, batch)
+        assert loss.shape == () and math.isfinite(float(loss))
     assert set(tconfigs.ARCH_IDS) == set(tconfigs._MODULES)
     with pytest.raises(KeyError):
         tconfigs.get_arch("resnet")

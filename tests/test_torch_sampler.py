@@ -191,6 +191,28 @@ def test_shape_graph_is_built_once_per_shape_and_seed(monkeypatch):
         gnn_family.shape_graph.cache_clear()
 
 
+def test_a_passed_graph_gives_the_shape_graphs_batches(monkeypatch):
+    """``shape_batch(..., graph=g)`` samples ``g``: its batches equal those
+    of the default call, which samples ``shape_graph`` (the same graph,
+    built there), and it builds no graph of its own."""
+    monkeypatch.setitem(gnn_family.GNN_SHAPES, SMALL, dict(SMALL_SHAPE))
+    tcfg = _small_cfgs("gcn-cora")[0]
+    gnn_family.shape_graph.cache_clear()
+    try:
+        graph = pipeline.uniform_graph(300, 30_000, 0)
+        steps = (0, 3)
+        passed = [gnn_family.shape_batch(tcfg, SMALL, DataCursor(0, step),
+                                         "cpu", graph) for step in steps]
+        assert gnn_family.shape_graph.cache_info().misses == 0
+        for step, a in zip(steps, passed):
+            b = gnn_family.shape_batch(tcfg, SMALL, DataCursor(0, step), "cpu")
+            assert a.keys() == b.keys()
+            assert all(torch.equal(a[k], b[k]) for k in a)
+        assert gnn_family.shape_graph.cache_info().misses == 1
+    finally:
+        gnn_family.shape_graph.cache_clear()
+
+
 # -- sampled training against the JAX package --------------------------------
 
 

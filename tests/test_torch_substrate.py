@@ -318,7 +318,7 @@ def test_roadmap_labels_cited_by_the_port_exist():
             for label in m.group(1).rstrip(".").split("/"):
                 cited.setdefault(label.lstrip("§"), []).append(
                     path.relative_to(REPO).as_posix())
-    assert {"A9", "A10.3", "A10.4"} <= set(cited)
+    assert {"A9", "A10.4"} <= set(cited)
     stale = {label: where for label, where in cited.items()
              if label not in (sections if len(label) == 1 else heads)}
     assert not stale, stale
