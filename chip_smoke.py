@@ -205,7 +205,23 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
     every gradient and updated parameter; flipped expert choices printed
     with their margins), and the train CLI (``--arch stablelm-1.6b
     --reduced --steps 5``);
-13. the ``{"kernels": [...]}`` line, the card line, and last
+13. the dry run and the model cells, the kernels' counts set to 0 just
+    before and read just after: (a) ``launch.dryrun.main(["--all",
+    "--both-meshes", "--commongraph", "--json", ...])`` must return 0 with
+    84 records (40 cells x 2 production meshes, 2 CommonGraph shapes x 2),
+    its seconds and its largest one-device peak and per-device arguments
+    printed; (b) gcn-cora/full_graph_sm, pna/molecule and dien/serve_p99
+    built by ``configs.make_cell`` on ``make_local_mesh()`` and run on the
+    card from seeded arguments of their meta arguments' shapes: each
+    output equal to ``launch.train.train_step``'s or phase 9's serve
+    call's bit for bit, each step's peak within 5% or 64 MiB of the meta
+    trace's, and phase 12's stablelm step traced on meta against phase
+    12's measured peak to the same bound; (c) a fault drill, gcn-cora/
+    full_graph_sm trained 8 steps through ``FaultTolerantRunner`` with
+    checkpoints every 2 steps and failures at steps 3 and 6, equal to a
+    run without failures bit for bit, then 5 rounds of
+    ``ef_compress_update`` card against CPU bit for bit;
+14. the ``{"kernels": [...]}`` line, the card line, and last
     ``{"ok": true, "device": {...}}``.
 
 Without a GPU, or without the repository's ``src/`` beside this file, it
@@ -2357,6 +2373,258 @@ def lm_train_phase(device, case=segment_case) -> dict:
                              for r in runs.values()) + cli_launches)
 
 
+# phase 13: the dry run's records (40 cells x 2 meshes + 2 CommonGraph
+# shapes x 2 meshes), the cells run on the card against their entry points
+# and peaks, and the fault drill's schedule (tests/test_torch_runtime.py)
+DRYRUN_RECORDS = 84
+DRYRUN_CARD_CELLS = (("gcn-cora", "full_graph_sm"), ("pna", "molecule"),
+                     ("dien", "serve_p99"))
+PEAK_REL_TOL, PEAK_ABS_TOL = 0.05, 64 * 2**20
+# a phase-13b cell's arguments and its step's temporaries, each apart
+PART_ABS_TOL = 2**20
+DRILL = dict(ckpt_every=2, fail_at={3, 6}, n_steps=8)
+DRILL_REPLAYED = [2, 3, 6]
+COMPRESS_ROUNDS = 5
+
+
+def bytes_agree(what: str, measured: int, traced: int,
+                abs_tol: int = PEAK_ABS_TOL) -> None:
+    """Fail unless ``measured`` lies within ``PEAK_REL_TOL`` of ``traced``
+    or ``abs_tol``, whichever is larger."""
+    bound = max(PEAK_REL_TOL * traced, abs_tol)
+    if abs(measured - traced) > bound:
+        fail(f"{what}: measured {measured:,} bytes, traced {traced:,}: more "
+             f"than {bound:,.0f} apart")
+
+
+def dryrun_summary() -> dict:
+    """13a: ``launch.dryrun.main(["--all", "--both-meshes",
+    "--commongraph", "--json", ...])``, its per-cell lines kept out of the
+    log: it must return 0 with ``DRYRUN_RECORDS`` records. Returns the
+    seconds and the largest one-device peak and per-device arguments."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.launch import dryrun
+    with tempfile.TemporaryDirectory() as tmp:
+        path = pathlib.Path(tmp) / "dryrun.json"
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as lines:
+            rc = dryrun.main(["--all", "--both-meshes", "--commongraph",
+                              "--json", str(path)])
+        seconds = time.perf_counter() - t0
+        got = json.loads(path.read_text())
+    records = got["records"]
+    if rc != 0 or got["failures"] or len(records) != DRYRUN_RECORDS:
+        fail(f"phase 13a: dry run returned {rc} with {len(records)} records "
+             f"and failures {got['failures']}; its last lines: "
+             f"{lines.getvalue()[-2000:]}")
+    peak = max(records, key=lambda r: r["one_device"]["peak_bytes"])
+    held = max(records, key=lambda r: r["mem_per_device"]["argument_bytes"])
+    out = dict(seconds=seconds, records=len(records),
+               largest_one_device_peak=dict(
+                   cell=peak["cell"], mesh=peak["mesh"],
+                   bytes=peak["one_device"]["peak_bytes"]),
+               largest_argument_bytes=dict(
+                   cell=held["cell"], mesh=held["mesh"],
+                   bytes=held["mem_per_device"]["argument_bytes"]))
+    print(f"[chip_smoke] phase 13a: dry run --all --both-meshes "
+          f"--commongraph: {len(records)} records in {seconds:.1f}s; largest "
+          f"one-device peak {peak['cell']} "
+          f"{peak['one_device']['peak_bytes'] / 2**40:.2f} TiB; largest "
+          f"per-device arguments {held['cell']} on {held['mesh']} "
+          f"{held['mem_per_device']['argument_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    return out
+
+
+def card_cell_args(arch: str, shape: str, device):
+    """The concrete arguments of a phase-13b cell on ``device``, from the
+    seeded init and ``shape_batch`` functions, and the existing entry
+    point's output on them: ``launch.train.train_step`` (lr 1e-3, no
+    decay) for a GNN, phase 9's DIEN serve call for dien."""
+    import torch
+    from repro_torch.configs import get_arch, recsys_family
+    from repro_torch.data import DataCursor
+    from repro_torch.launch import train
+    from repro_torch.models import dien
+    if arch == "dien":
+        cfg = get_arch("dien")[0]
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        params = dien.init_dien_params(gen, cfg)
+        batch = recsys_family.shape_batch(cfg, shape, DataCursor(0, 0),
+                                          device)
+
+        def entry():
+            with torch.no_grad():
+                return dien.dien_forward(cfg, params, batch)[0]
+        return (params, batch), entry
+    _, batch, params, opt, loss_fn, _ = train.shape_run(arch, shape, device, 0)
+
+    def entry():
+        p, o, loss, gnorm = train.train_step(loss_fn, params, opt, batch,
+                                             lr=1e-3)
+        return p, o, {"loss": loss, "grad_norm": gnorm}
+    return (params, opt, batch), entry
+
+
+def dryrun_card_phase(device, lm_train_row) -> dict:
+    """13b: ``DRYRUN_CARD_CELLS`` built by ``configs.make_cell`` on
+    ``make_local_mesh()`` and run on the card from concrete arguments of
+    their meta arguments' shapes and dtypes: each output equals the
+    existing entry point's bit for bit. The bytes the arguments take on the
+    card (the allocator's count across ``card_cell_args``) and the step's
+    temporaries (its peak above what was live before it) each lie within
+    ``PEAK_REL_TOL`` or ``PART_ABS_TOL`` of the meta trace's
+    ``one_device.argument_bytes`` and ``temp_bytes``. Then phase 12's
+    stablelm step traced on meta against phase 12's measured peak, within
+    ``PEAK_REL_TOL`` or ``PEAK_ABS_TOL``."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch, make_cell
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.meta_trace import trace_step
+    from repro_torch.models.transformer import init_lm_params, lm_loss
+    from repro_torch.optim import adamw_init
+    from repro_torch.tree import tree_leaves
+    mesh = make_local_mesh([device])
+    cells = {}
+    for arch, shape in DRYRUN_CARD_CELLS:
+        cell = make_cell(arch, shape, mesh)
+        _, trace = trace_step(cell.fn, cell.args)
+        one = trace["one_device"]
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        args, entry = card_cell_args(arch, shape, device)
+        torch.cuda.synchronize()
+        arg_bytes = torch.cuda.memory_allocated() - held
+        got = [(tuple(t.shape), t.dtype) for t in tree_leaves(args)]
+        if got != [(tuple(t.shape), t.dtype) for t in tree_leaves(cell.args)]:
+            fail(f"phase 13b {cell.name}: concrete arguments differ from "
+                 f"the cell's")
+        torch.cuda.reset_peak_memory_stats()
+        out = cell.fn(*args)
+        torch.cuda.synchronize()
+        temp = torch.cuda.max_memory_allocated() - held - arg_bytes
+        bytes_agree(f"phase 13b {cell.name} arguments", arg_bytes,
+                    one["argument_bytes"], PART_ABS_TOL)
+        bytes_agree(f"phase 13b {cell.name} step temporaries", temp,
+                    one["temp_bytes"], PART_ABS_TOL)
+        want = entry()
+        for a, b in zip(tree_leaves(out), tree_leaves(want), strict=True):
+            same_bits(f"phase 13b {cell.name} cell vs entry point", a, b)
+        cells[cell.name] = dict(measured_arguments=arg_bytes,
+                                traced_arguments=one["argument_bytes"],
+                                measured_temp=temp,
+                                traced_temp=one["temp_bytes"],
+                                measured_peak=arg_bytes + temp,
+                                traced_peak=one["peak_bytes"],
+                                flops=trace["flops"],
+                                bytes_accessed=trace["bytes_accessed"])
+        del args, out, want, entry
+        torch.cuda.empty_cache()
+
+    # phase 12's stablelm step, traced on meta
+    arch = "stablelm-1.6b"
+    depth = dict(LM_TRAIN_RUNS)[arch]
+    cfg = get_arch(arch)[0]
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    params = init_lm_params(None, cfg, device="meta")
+    tokens = torch.empty((train.LM_TRAIN_BATCH, train.LM_TRAIN_SEQ),
+                         dtype=torch.int32, device="meta")
+
+    def loss_fn(p, b):
+        return lm_loss(cfg, p, b["tokens"], b["labels"])
+
+    def step(p, o, b):
+        return train.train_step(loss_fn, p, o, b, lr=LM_TRAIN_LR)
+    _, trace = trace_step(step, (params, adamw_init(params),
+                                 {"tokens": tokens,
+                                  "labels": torch.empty_like(tokens)}))
+    run12 = lm_train_row["runs"][arch]
+    measured = int(run12["peak_gib"] * 2**30)
+    traced = trace["one_device"]["peak_bytes"]
+    bytes_agree(f"phase 13b {arch} (phase 12's step) peak", measured, traced)
+    cells[f"{arch} phase 12 step"] = dict(
+        measured_peak=measured, traced_peak=traced,
+        reckoned_peak=int(run12["reckoned_gib"]["peak"] * 2**30))
+    parts = "; ".join(
+        f"{name} {c['measured_arguments'] / 2**20:.3f} / "
+        f"{c['traced_arguments'] / 2**20:.3f} + "
+        f"{c['measured_temp'] / 2**20:.3f} / {c['traced_temp'] / 2**20:.3f}"
+        for name, c in cells.items() if "phase 12" not in name)
+    names = ", ".join(n for n in cells if "phase 12" not in n)
+    print(f"[chip_smoke] phase 13b: {names} on the card equal their entry "
+          f"points bit for bit; arguments + step temporaries, measured / "
+          f"traced MiB: {parts}; {arch} ({cfg.n_layers} layers, "
+          f"{train.LM_TRAIN_BATCH}x{train.LM_TRAIN_SEQ} tokens) step: "
+          f"measured in phase 12 {measured / 2**30:.2f} GiB, traced on meta "
+          f"{traced / 2**30:.2f} GiB (in {trace['trace_s']:.1f}s), reckoned "
+          f"{run12['reckoned_gib']['peak']:.2f} GiB "
+          f"(lm_train_reckoned_bytes)", flush=True)
+    return cells
+
+
+def fault_phase(device) -> dict:
+    """13c: gcn-cora/full_graph_sm trained ``DRILL["n_steps"]`` steps (the
+    batch of each step from its (seed, step) cursor) through
+    ``FaultTolerantRunner`` with checkpoints every ``DRILL["ckpt_every"]``
+    steps and failures at ``DRILL["fail_at"]``: the final parameters and
+    AdamW state equal a run without failures bit for bit, and the replayed
+    steps are ``DRILL_REPLAYED``. Then ``COMPRESS_ROUNDS`` rounds of
+    ``ef_compress_update`` over one step's gradients on the card, each
+    round's gradients and residuals equal to the CPU's bit for bit."""
+    import tempfile
+    from repro_torch.launch import train
+    from repro_torch.optim import ef_compress_update, init_residuals
+    from repro_torch.runtime import CheckpointManager, FaultTolerantRunner
+    from repro_torch.tree import tree_leaves, tree_map
+    _, batch, params, opt, loss_fn, batch_at = train.shape_run(
+        "gcn-cora", "full_graph_sm", device, 0)
+
+    def step_fn(state, step):
+        p, o, _, _ = train.train_step(loss_fn, state["params"], state["opt"],
+                                      batch_at(step), lr=1e-3)
+        return {"params": p, "opt": o}
+    t0 = time.perf_counter()
+    straight = {"params": params, "opt": opt}
+    for step in range(DRILL["n_steps"]):
+        straight = step_fn(straight, step)
+    with tempfile.TemporaryDirectory() as tmp:
+        runner = FaultTolerantRunner(CheckpointManager(tmp, device=device),
+                                     ckpt_every=DRILL["ckpt_every"])
+        got, replayed = runner.run({"params": params, "opt": opt}, step_fn,
+                                   DRILL["n_steps"],
+                                   fail_at=DRILL["fail_at"])
+    if replayed != DRILL_REPLAYED:
+        fail(f"phase 13c: replayed {replayed}, not {DRILL_REPLAYED}")
+    for a, b in zip(tree_leaves(got), tree_leaves(straight), strict=True):
+        same_bits("phase 13c drill vs a run without failures", a, b)
+    drill_s = time.perf_counter() - t0
+
+    _, grads = train.loss_and_grads(loss_fn, params, batch)
+    host = tree_map(lambda t: t.cpu(), grads)
+    res_card, res_host = init_residuals(grads), init_residuals(host)
+    for r in range(COMPRESS_ROUNDS):
+        comp_card, res_card = ef_compress_update(grads, res_card)
+        comp_host, res_host = ef_compress_update(host, res_host)
+        for a, b in zip(tree_leaves((comp_card, res_card)),
+                        tree_leaves((comp_host, res_host)), strict=True):
+            same_bits(f"phase 13c compression round {r}", a.cpu(), b)
+    print(f"[chip_smoke] phase 13c: gcn-cora/full_graph_sm "
+          f"{DRILL['n_steps']} steps, checkpoints every "
+          f"{DRILL['ckpt_every']}, failures at {sorted(DRILL['fail_at'])}: "
+          f"replayed {replayed}, parameters and AdamW state equal a run "
+          f"without failures bit for bit ({drill_s:.1f}s); "
+          f"{COMPRESS_ROUNDS} rounds of ef_compress_update card vs CPU bit "
+          f"for bit", flush=True)
+    return dict(replayed=replayed, drill_s=drill_s,
+                compress_rounds=COMPRESS_ROUNDS)
+
+
 def same_runs(what: str, got, want, keys) -> None:
     """fail() unless two executor runs agree: per-launch work and sweeps,
     stable fraction (where the run records one), and the result of every
@@ -3491,7 +3759,28 @@ def main() -> None:
           f"launches over {len(LM_TRAIN_RUNS)} LM training runs and the "
           f"train CLI; done in {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # 13. records
+    # 13. the dry run; its cells on the card; the fault drill and
+    # compression; the kernels' counts zeroed before and read after
+    t0 = time.perf_counter()
+    segment_reduce.launches = 0
+    embedding_bag.launches = 0
+    dryrun_row = dict(summary=dryrun_summary(),
+                      card=dryrun_card_phase(device, lm_train_row),
+                      fault=fault_phase(device))
+    dryrun_row["launches"] = dict(segment_reduce=segment_reduce.launches,
+                                  embedding_bag=embedding_bag.launches)
+    if min(dryrun_row["launches"].values()) <= 0:
+        fail(f"phase 13: kernel launches {dryrun_row['launches']}")
+    segment_row["launches"] += segment_reduce.launches
+    segment_row["launches_by_phase"]["13 dry run"] = segment_reduce.launches
+    bag_row["launches"] += embedding_bag.launches
+    bag_row["dryrun_launches"] = embedding_bag.launches
+    segment_row["dryrun"] = dryrun_row
+    print(f"[chip_smoke] phase 13: {segment_reduce.launches} segment_reduce "
+          f"and {embedding_bag.launches} embedding_bag launches; done in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+
+    # 14. records
     # each path's launches: phase 3's main path, phase 3b's service and
     # calibration, phase 3c's sharded and unsharded runs, phase 3d's
     # CommonGraph cell, phase 4b's ingestion

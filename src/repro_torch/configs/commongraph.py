@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import Cell, MeshAxes
+from repro_torch.configs.base import Cell, MeshAxes, P
 from repro_torch.graph.edgeset import (
     EdgeBlock,
     EdgeView,
@@ -78,8 +78,8 @@ def make_commongraph_cell(shape_id: str, mesh=None,
     sh = COMMONGRAPH_SHAPES[shape_id]
     s, n = sh["n_snapshots"], sh["n_nodes"]
     e_cg, e_d = sh["cg_edges"], sh["delta_edges"]
-    extent = (1 if mesh is None
-              else MeshAxes.for_mesh(mesh).n_batch_shards(mesh))
+    ax = MeshAxes() if mesh is None else MeshAxes.for_mesh(mesh)
+    extent = 1 if mesh is None else ax.n_batch_shards(mesh)
     sb = lane_bucket(s, extent)
 
     def meta(shape, dtype):
@@ -92,6 +92,11 @@ def make_commongraph_cell(shape_id: str, mesh=None,
     delta = EdgeBlock(meta((sb, e_d), i32), meta((sb, e_d), i32),
                       meta((sb, e_d), f32))
     lane_valid = meta((sb,), torch.bool)
+    # the reference's layout: lanes over the batch axes, edges over model
+    bd = ax.batch
+    state_spec = P(bd, None)
+    cg_spec = EdgeBlock(P(ax.model), P(ax.model), P(ax.model))
+    delta_spec = EdgeBlock(P(bd, ax.model), P(bd, ax.model), P(bd, ax.model))
 
     def evolve_step(values, parent, cg_block, delta_block, lane_valid):
         # track_parents=False, as the reference: the deletion-free hop
@@ -109,6 +114,8 @@ def make_commongraph_cell(shape_id: str, mesh=None,
         name=f"commongraph/{shape_id}",
         fn=evolve_step,
         args=(values, parent, cg, delta, lane_valid),
+        in_specs=(state_spec, state_spec, cg_spec, delta_spec, P(bd)),
+        out_specs=(state_spec, state_spec, P(bd), P(bd)),
         lane_args=(0, 1, 3, 4),
         donate=(0, 1),
         meta={"lanes": s, "lane_bucket": sb,

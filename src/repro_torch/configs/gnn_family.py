@@ -1,14 +1,15 @@
-"""GNN-family shapes: full_graph_sm / minibatch_lg / ogb_products / molecule.
+"""GNN-family cells: full_graph_sm / minibatch_lg / ogb_products / molecule.
 
 Counterpart of ``repro.configs.gnn_family``: the same shapes, padding and
-per-shape binding of the feature dims. ``shape_batch`` is the concrete
-counterpart of the reference's abstract ``_graph_input_specs``: a batch
-with the same keys, shapes, dtypes and padding, built on a device. The
-``minibatch`` kind samples a subgraph of the shape's graph
+per-shape binding of the feature dims, the reference's sharding plan
+(edge arrays over every mesh axis, node arrays over (data, model), the
+MLP parameters replicated, the minibatch feature table row-split) and its
+cells (``make_gnn_cell``), whose arguments are meta tensors
+(``_graph_input_specs``). ``shape_batch`` is their concrete counterpart:
+a batch with the same keys, shapes, dtypes and padding, built on a
+device. The ``minibatch`` kind samples a subgraph of the shape's graph
 (``shape_graph``: a seeded uniform graph at the shape's node and edge
-counts, built once per process) with the port's ``graph/sampler.py``. The
-mesh and ``Cell`` parts wait for the dry run and model cells (ROADMAP
-A10.4).
+counts, built once per process) with the port's ``graph/sampler.py``.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import functools
 
 import torch
 
+from repro_torch.configs.base import Cell, MeshAxes, P, meta_tensor
 from repro_torch.data.pipeline import (
     DataCursor,
     gnn_full_batch,
@@ -25,8 +27,11 @@ from repro_torch.data.pipeline import (
     gnn_sampled_batch,
     uniform_graph,
 )
-from repro_torch.graph.sampler import NeighborSampler
-from repro_torch.models.gnn import GNNConfig
+from repro_torch.graph.sampler import NeighborSampler, subgraph_shapes
+from repro_torch.models.gnn import GNNConfig, gnn_loss, init_gnn_params
+from repro_torch.optim import adamw_init
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.tree import tree_map
 
 GNN_SHAPES = {
     "full_graph_sm": dict(kind="full", n_nodes=2_708, n_edges=10_556, d_feat=1_433),
@@ -64,6 +69,146 @@ def _arch_shape_cfg(cfg: GNNConfig, shape_id: str) -> GNNConfig:
                      if sh["kind"] == "minibatch" else 0)
     return dataclasses.replace(cfg, d_in=d_in, d_out=d_out, task=task,
                                feature_table=feature_table)
+
+
+def _graph_input_specs(cfg: GNNConfig, shape_id: str, ax: MeshAxes):
+    """(batch of meta tensors, batch specs) of one shape cell, the
+    reference's: ``shape_batch``'s keys, shapes and dtypes."""
+    sh = GNN_SHAPES[shape_id]
+    all_axes = ax.batch + (ax.model,)
+    node_p = P((ax.fsdp, ax.model))
+    edge_p = P(all_axes)
+    f32, i32 = torch.float32, torch.int32
+    S = meta_tensor
+
+    if sh["kind"] == "minibatch":
+        n_local, n_edges = subgraph_shapes(sh["batch_nodes"], sh["fanout"])
+        n_local, n_edges = _pad(n_local, NODE_PAD), _pad(n_edges, EDGE_PAD)
+        batch = {
+            "nodes": S((n_local,), i32),
+            "node_valid": S((n_local,), torch.bool),
+            "src": S((n_edges,), i32),
+            "dst": S((n_edges,), i32),
+            "edge_feat": S((n_edges, cfg.d_edge), f32),
+            "n_seeds": S((), i32),
+        }
+        specs = {
+            "nodes": node_p, "node_valid": node_p,
+            "src": edge_p, "dst": edge_p, "edge_feat": P(all_axes, None),
+            "n_seeds": P(),
+        }
+        if cfg.task == "node_class":
+            batch["labels"] = S((sh["batch_nodes"],), i32)
+            specs["labels"] = P((ax.fsdp,))
+        else:
+            batch["targets"] = S((sh["batch_nodes"], cfg.d_out), f32)
+            specs["targets"] = P((ax.fsdp,), None)
+        n_nodes_model = n_local
+    elif sh["kind"] == "molecule":
+        n = _pad(sh["batch"] * sh["n_nodes"], NODE_PAD)
+        e = _pad(sh["batch"] * sh["n_edges"], EDGE_PAD)
+        batch = {
+            "x": S((n, cfg.d_in), f32),
+            "src": S((e,), i32), "dst": S((e,), i32),
+            "edge_feat": S((e, cfg.d_edge), f32),
+            "graph_id": S((n,), i32),
+            "graph_targets": S((sh["batch"], cfg.d_out), f32),
+        }
+        specs = {
+            "x": P((ax.fsdp, ax.model), None),
+            "src": edge_p, "dst": edge_p, "edge_feat": P(all_axes, None),
+            "graph_id": node_p,
+            "graph_targets": P((ax.fsdp,), None),
+        }
+        n_nodes_model = n
+    else:  # full graph
+        n, e = _pad(sh["n_nodes"], NODE_PAD), _pad(sh["n_edges"], EDGE_PAD)
+        batch = {
+            "x": S((n, cfg.d_in), f32),
+            "src": S((e,), i32), "dst": S((e,), i32),
+            "edge_feat": S((e, cfg.d_edge), f32),
+        }
+        specs = {
+            "x": P((ax.fsdp, ax.model), None),
+            "src": edge_p, "dst": edge_p, "edge_feat": P(all_axes, None),
+        }
+        if cfg.task == "node_class":
+            batch["labels"] = S((n,), i32)
+            specs["labels"] = node_p
+        else:
+            batch["targets"] = S((n, cfg.d_out), f32)
+            specs["targets"] = P((ax.fsdp, ax.model), None)
+        n_nodes_model = n
+
+    if cfg.arch == "graphcast":
+        # the derived mesh graph: the grid is the shape's graph
+        m = max(n_nodes_model // 4, 42)
+        em = 4 * m
+        e_g2m = batch["src"].shape[0]
+        batch.update({
+            "mesh_valid": S((m,), torch.bool),
+            "g2m_src": batch.pop("src"), "g2m_dst": batch.pop("dst"),
+            "g2m_feat": batch.pop("edge_feat"),
+            "mesh_src": S((em,), i32), "mesh_dst": S((em,), i32),
+            "mesh_feat": S((em, cfg.d_edge), f32),
+            "m2g_src": S((e_g2m,), i32), "m2g_dst": S((e_g2m,), i32),
+            "m2g_feat": S((e_g2m, cfg.d_edge), f32),
+        })
+        specs.update({
+            "mesh_valid": node_p,
+            "g2m_src": specs.pop("src"), "g2m_dst": specs.pop("dst"),
+            "g2m_feat": specs.pop("edge_feat"),
+            "mesh_src": edge_p, "mesh_dst": edge_p,
+            "mesh_feat": P(all_axes, None),
+            "m2g_src": edge_p, "m2g_dst": edge_p,
+            "m2g_feat": P(all_axes, None),
+        })
+        # graphcast regresses grid vars; retarget shape-specific labels
+        for k in ("labels", "targets"):
+            batch.pop(k, None)
+            specs.pop(k, None)
+        batch["targets"] = S((n_nodes_model, cfg.n_vars), f32)
+        specs["targets"] = P((ax.fsdp, ax.model), None)
+    return batch, specs
+
+
+def gnn_param_specs(cfg: GNNConfig, params, ax: MeshAxes):
+    """MLP parameters replicated; the feature table, where there is one,
+    row-split over (data, model)."""
+    specs = tree_map(lambda a: P(*((None,) * a.dim())), params)
+    if cfg.feature_table:
+        specs["features"] = P((ax.fsdp, ax.model), None)
+    return specs
+
+
+def make_gnn_cell(cfg: GNNConfig, shape_id: str, mesh) -> Cell:
+    """The ``<cfg.name>/<shape_id>`` training cell on ``mesh``:
+    ``fn(params, opt, batch)`` -> ``(params, opt, {"loss",
+    "grad_norm"})``, one ``launch.train.train_step`` (lr 1e-3, no weight
+    decay, as the reference's), on the shape-bound config."""
+    from repro_torch.launch.train import train_step
+    ax = MeshAxes.for_mesh(mesh)
+    cfg = _arch_shape_cfg(cfg, shape_id)
+    batch, bspecs = _graph_input_specs(cfg, shape_id, ax)
+    params = init_gnn_params(None, cfg, device="meta")
+    opt = adamw_init(params)
+    pspecs = gnn_param_specs(cfg, params, ax)
+    ospecs = AdamWState(m=pspecs, v=pspecs, count=P())
+
+    def loss_fn(p, batch):
+        return gnn_loss(cfg, p, batch)
+
+    def gnn_train_step(params, opt_state, batch):
+        new_p, new_o, loss, gnorm = train_step(loss_fn, params, opt_state,
+                                               batch, lr=1e-3)
+        return new_p, new_o, {"loss": loss, "grad_norm": gnorm}
+
+    return Cell(
+        name=f"{cfg.name}/{shape_id}", fn=gnn_train_step,
+        args=(params, opt, batch),
+        in_specs=(pspecs, ospecs, bspecs),
+        out_specs=(pspecs, ospecs, {"loss": P(), "grad_norm": P()}),
+        donate=(0, 1))
 
 
 def _pad_rows(t: torch.Tensor, rows: int, value) -> torch.Tensor:

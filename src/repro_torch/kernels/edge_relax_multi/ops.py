@@ -5,7 +5,8 @@ relax_multi_pallas``. On CUDA tensors it launches the hand-written kernel
 sequence of ``csrc/relax.cu`` (``relax_multi_run``: one prepare pass, then
 k rounds of one scatter launch per edge block and one finish launch, with
 no host sync inside the chunk); on CPU tensors it runs the plain version
-(``ref.py``). Any other device raises.
+(``ref.py``); on meta tensors it returns empty ones of the outputs' shapes
+(``kernels/_meta.py``). Any other device raises.
 
 Bound on the card: bytes. A sweep must read every edge's src; only edges
 whose src is on some lane's frontier need their dst and w, a value gather
@@ -28,7 +29,7 @@ import contextlib
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 from repro_torch.kernels.edge_relax.ops import OP_CODES
 from repro_torch.kernels.edge_relax.ref import ops_for
 from repro_torch.kernels.edge_relax_multi.ref import relax_multi_ref
@@ -85,9 +86,12 @@ def relax_multi(values, parent, frontier, blocks, allowed=None, *, op: str,
         return relax_multi_ref(values, parent, frontier, blocks, allowed,
                                op=op, num_nodes=num_nodes, k=k,
                                track_parents=track_parents)
+    if values.device.type == "meta":
+        return _meta.relax_multi(values, parent, frontier, blocks,
+                                 track_parents)
     if values.device.type != "cuda":
-        raise ValueError(f"relax_multi runs on cuda or cpu tensors, not "
-                         f"{values.device}")
+        raise ValueError(f"relax_multi runs on cuda, cpu or meta tensors, "
+                         f"not {values.device}")
     lib = _build.load_library()
     dev = values.device
     lanes = values.shape[0]

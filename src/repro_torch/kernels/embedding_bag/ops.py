@@ -4,7 +4,9 @@ Replaces ``repro/kernels/embedding_bag/embedding_bag.py::embedding_bag_pallas``
 (and its dispatching wrapper ``ops.embedding_bag_fused``). On a CUDA tensor
 it launches the hand-written kernel (``csrc/embedding_bag.cu``,
 ``embedding_bag_run``); on a CPU tensor it runs the plain version
-(``ref.py``). Any other device raises. The reference pads the lookups to
+(``ref.py``); on a meta tensor it returns an empty one of the output's
+shape (``kernels/_meta.py``), and the backward gives the gradients'
+shapes. Any other device raises. The reference pads the lookups to
 ``BLOCK_L`` and sends tables over its VMEM budget to XLA; here every table
 goes through the kernel, unpadded.
 
@@ -38,7 +40,7 @@ import contextlib
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 from repro_torch.kernels.embedding_bag.ref import embedding_bag_ref
 from repro_torch.kernels.segment_reduce import (
     SegmentLayout,
@@ -69,9 +71,9 @@ def _check_inputs(table, ids, bags, weights, n_bags, layout):
         raise ValueError(f"table, ids, bags and weights must share a device, "
                          f"got {device}, {ids.device}, {bags.device}, "
                          f"{weights.device}")
-    if not (table.is_cuda or table.is_cpu):
-        raise ValueError(f"embedding_bag runs on cuda or cpu tensors, not "
-                         f"{device}")
+    if not (table.is_cuda or table.is_cpu or table.is_meta):
+        raise ValueError(f"embedding_bag runs on cuda, cpu or meta tensors, "
+                         f"not {device}")
     # a layout's own seg passed as the bags (as DIEN does) fits them
     if layout is not None and (layout.num_segments != n_bags
                                or layout.seg is not bags
@@ -84,11 +86,14 @@ def _check_inputs(table, ids, bags, weights, n_bags, layout):
 
 
 def _launch(table, ids, weights, layout: SegmentLayout) -> torch.Tensor:
-    """The bag sums: the kernel on CUDA, the plain version on the CPU."""
+    """The bag sums: the kernel on CUDA, the plain version on the CPU,
+    shapes only on meta."""
     n = layout.num_segments
     if table.device.type == "cpu":
         return embedding_bag_ref(table, ids, layout.seg, weights, n_bags=n,
                                  layout=layout)
+    if table.device.type == "meta":
+        return _meta.embedding_bag(table, ids, weights, layout)
     lib = _build.load_library()
     out = torch.empty((n, table.shape[1]), dtype=torch.float32,
                       device=table.device)

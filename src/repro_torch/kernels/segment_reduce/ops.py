@@ -3,7 +3,9 @@
 Replaces ``repro/kernels/segment_reduce/segment_reduce.py::segment_reduce_pallas``.
 On a CUDA tensor it launches the hand-written kernel
 (``csrc/segment_reduce.cu``, ``segment_reduce_run``); on a CPU tensor it
-runs the plain version (``ref.py``). Any other device raises.
+runs the plain version (``ref.py``); on a meta tensor it returns an empty
+one of the output's shape (``kernels/_meta.py``), and the backward below
+gives the gradients' shapes. Any other device raises.
 
 ``segment_reduce`` is differentiable (a ``torch.autograd.Function``). The
 TPU kernel has no backward kernel, so the backward is plain PyTorch apart
@@ -55,7 +57,7 @@ import contextlib
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, _meta
 from repro_torch.kernels.segment_reduce.ref import (
     IDENTITY,
     SegmentLayout,
@@ -81,9 +83,9 @@ def _check_inputs(data, seg, num_segments, reduce, layout):
                         f"{seg.dtype} {tuple(seg.shape)}")
     if seg.device != data.device:
         raise ValueError(f"seg is on {seg.device}, data on {data.device}")
-    if data.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"segment_reduce runs on cuda or cpu tensors, not "
-                         f"{data.device}")
+    if data.device.type not in ("cpu", "cuda", "meta"):
+        raise ValueError(f"segment_reduce runs on cuda, cpu or meta tensors, "
+                         f"not {data.device}")
     if layout is not None and (layout.num_segments != num_segments
                                or layout.seg.shape != seg.shape
                                or layout.seg.device != data.device):
@@ -95,11 +97,13 @@ def _check_inputs(data, seg, num_segments, reduce, layout):
 
 def _launch(rows: torch.Tensor, layout: SegmentLayout, reduce: str):
     """The reduction of contiguous float32 ``rows`` [E, D]: the kernel on
-    CUDA, the plain version on the CPU."""
+    CUDA, the plain version on the CPU, shapes only on meta."""
     n = layout.num_segments
     if rows.device.type == "cpu":
         return segment_reduce_ref(rows, layout.seg, num_segments=n,
                                   reduce=reduce, layout=layout)
+    if rows.device.type == "meta":
+        return _meta.segment_reduce(rows, layout)
     lib = _build.load_library()
     e, d = rows.shape
     out = torch.empty((n, d), dtype=torch.float32, device=rows.device)

@@ -24,12 +24,20 @@ import torch
 import torch.nn.functional as F
 
 
-def dense_init(gen: torch.Generator, d_in: int, d_out: int,
-               scale: float | None = None) -> torch.Tensor:
+def _device(gen: torch.Generator | None, device) -> torch.device:
+    """``device``, by default ``gen``'s."""
+    return torch.device(device if device is not None else gen.device)
+
+
+def dense_init(gen: torch.Generator | None, d_in: int, d_out: int,
+               scale: float | None = None,
+               device: str | torch.device | None = None) -> torch.Tensor:
     """A [d_in, d_out] float32 weight, N(0, 1) times ``scale`` (default
-    1/sqrt(d_in)), on ``gen``'s device."""
+    1/sqrt(d_in)), on ``device`` (default ``gen``'s; on meta ``gen`` may
+    be None)."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((d_in, d_out), generator=gen, device=gen.device)
+    w = torch.randn((d_in, d_out), generator=gen,
+                    device=_device(gen, device))
     return w * scale
 
 
@@ -44,7 +52,7 @@ def normal_init(gen: torch.Generator | None, shape: tuple[int, ...],
     (default ``gen``'s). Drawn in float32 a block of rows at a time, so a
     large bfloat16 weight never has a float32 copy of its own size; on the
     meta device nothing is drawn (``gen`` may be None)."""
-    device = torch.device(device if device is not None else gen.device)
+    device = _device(gen, device)
     out = torch.empty(shape, dtype=dtype, device=device)
     if device.type == "meta":
         return out
@@ -92,7 +100,8 @@ class _MatmulF32(torch.autograd.Function):
 def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with a float32 result for 2-D or batched 3-D operands:
     the reference's ``preferred_element_type=jnp.float32``. Float32
-    operands multiply as they are; bfloat16 ones on the card go through
+    operands multiply as they are; bfloat16 ones on the card (and on the
+    meta device, which traces the card's step) go through
     ``torch.mm``/``torch.bmm`` with ``out_dtype=torch.float32`` (products
     accumulated and returned in float32, no bfloat16 rounding of the
     result; through ``_MatmulF32``, differentiable), and on the CPU,
@@ -100,7 +109,8 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     product is exact in float32, so only the order of the float32 sums
     differs). Operands of two dtypes are both widened, as JAX promotes
     them."""
-    if a.device.type == "cuda" and a.dtype == b.dtype != torch.float32:
+    if (a.device.type in ("cuda", "meta")
+            and a.dtype == b.dtype != torch.float32):
         return _MatmulF32.apply(a, b)
     return torch.matmul(a.float(), b.float())
 
@@ -139,17 +149,20 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (x - mu) * torch.rsqrt(var + eps) * gamma + beta
 
 
-def mlp_params(gen: torch.Generator, dims: tuple[int, ...],
-               norm: bool = False) -> dict:
+def mlp_params(gen: torch.Generator | None, dims: tuple[int, ...],
+               norm: bool = False,
+               device: str | torch.device | None = None) -> dict:
     """``{"layers": [{"w", "b"}, ...]}`` for widths ``dims``, plus a final
-    layer norm's ``ln_g``/``ln_b`` when ``norm``."""
-    layers = [{"w": dense_init(gen, a, b),
-               "b": torch.zeros((b,), device=gen.device)}
+    layer norm's ``ln_g``/``ln_b`` when ``norm``, on ``device`` (default
+    ``gen``'s)."""
+    device = _device(gen, device)
+    layers = [{"w": dense_init(gen, a, b, device=device),
+               "b": torch.zeros((b,), device=device)}
               for a, b in zip(dims[:-1], dims[1:])]
     p = {"layers": layers}
     if norm:
-        p["ln_g"] = torch.ones((dims[-1],), device=gen.device)
-        p["ln_b"] = torch.zeros((dims[-1],), device=gen.device)
+        p["ln_g"] = torch.ones((dims[-1],), device=device)
+        p["ln_b"] = torch.zeros((dims[-1],), device=device)
     return p
 
 

@@ -57,11 +57,11 @@ class DIENConfig:
         return 2 * self.embed_dim
 
 
-def _gru_params(gen: torch.Generator, d_in: int, d_h: int):
+def _gru_params(gen: torch.Generator | None, d_in: int, d_h: int, device):
     return {
-        "wi": dense_init(gen, d_in, 3 * d_h),   # update/reset/cand input
-        "wh": dense_init(gen, d_h, 3 * d_h),
-        "b": torch.zeros((3 * d_h,), device=gen.device),
+        "wi": dense_init(gen, d_in, 3 * d_h, device=device),  # update/reset/cand input
+        "wh": dense_init(gen, d_h, 3 * d_h, device=device),
+        "b": torch.zeros((3 * d_h,), device=device),
     }
 
 
@@ -81,21 +81,25 @@ def _gru_cell(p, h, x, att=None):
     return (1.0 - z) * h + z * c
 
 
-def init_dien_params(gen: torch.Generator, cfg: DIENConfig):
-    """Parameters drawn from ``gen`` on its device (the reference's keys
-    and shapes; other numbers)."""
+def init_dien_params(gen: torch.Generator | None, cfg: DIENConfig,
+                     device: str | torch.device | None = None):
+    """Parameters drawn from ``gen`` on ``device`` (default ``gen``'s; the
+    reference's keys and shapes, other numbers); ``device="meta"`` gives
+    shapes and dtypes only (``gen`` may be None)."""
+    device = torch.device(device if device is not None else gen.device)
     d, dh = cfg.d_behavior, cfg.gru_dim
     d_final = dh + d + d                     # interest ++ target emb ++ sum-pooled history
     return {
         "item_emb": torch.randn((cfg.n_items, cfg.embed_dim), generator=gen,
-                                device=gen.device) * 0.02,
+                                device=device) * 0.02,
         "cat_emb": torch.randn((cfg.n_cats, cfg.embed_dim), generator=gen,
-                               device=gen.device) * 0.02,
-        "gru1": _gru_params(gen, d, dh),
-        "augru": _gru_params(gen, d, dh),
-        "att": mlp_params(gen, (dh + d, 80, 1)),
-        "mlp": mlp_params(gen, (d_final,) + cfg.mlp_dims + (2,)),
-        "aux": mlp_params(gen, (dh + d, 100, 1)),
+                               device=device) * 0.02,
+        "gru1": _gru_params(gen, d, dh, device),
+        "augru": _gru_params(gen, d, dh, device),
+        "att": mlp_params(gen, (dh + d, 80, 1), device=device),
+        "mlp": mlp_params(gen, (d_final,) + cfg.mlp_dims + (2,),
+                          device=device),
+        "aux": mlp_params(gen, (dh + d, 100, 1), device=device),
     }
 
 

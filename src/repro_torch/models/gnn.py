@@ -94,9 +94,9 @@ def _gather(h, idx, lay: Layouts):
 # GCN (Kipf & Welling) — SpMM with symmetric normalization
 # ---------------------------------------------------------------------------
 
-def init_gcn(gen: torch.Generator, cfg: GNNConfig):
+def init_gcn(gen: torch.Generator | None, cfg: GNNConfig, device):
     dims = [cfg.d_in] + [cfg.d_hidden] * (cfg.n_layers - 1) + [cfg.d_out]
-    return {"w": [torch.randn((a, b), generator=gen, device=gen.device)
+    return {"w": [torch.randn((a, b), generator=gen, device=device)
                   / math.sqrt(a) for a, b in zip(dims[:-1], dims[1:])]}
 
 
@@ -126,15 +126,15 @@ PNA_AGGS = ("mean", "max", "min", "std")
 PNA_SCALERS = ("identity", "amplification", "attenuation")
 
 
-def init_pna(gen: torch.Generator, cfg: GNNConfig):
+def init_pna(gen: torch.Generator | None, cfg: GNNConfig, device):
     d = cfg.d_hidden
     n_cat = len(PNA_AGGS) * len(PNA_SCALERS) * d + d
-    layers = [{"post": mlp_params(gen, (n_cat, d, d))}
+    layers = [{"post": mlp_params(gen, (n_cat, d, d), device=device)}
               for _ in range(cfg.n_layers)]
     return {
-        "enc": mlp_params(gen, (cfg.d_in, d)),
+        "enc": mlp_params(gen, (cfg.d_in, d), device=device),
         "layers": layers,
-        "dec": mlp_params(gen, (d, d, cfg.d_out)),
+        "dec": mlp_params(gen, (d, d, cfg.d_out), device=device),
     }
 
 
@@ -171,20 +171,20 @@ def pna_forward(cfg: GNNConfig, params, batch, lay: Layouts):
 # MeshGraphNet (Pfaff et al.) — edge+node MLP blocks with residuals
 # ---------------------------------------------------------------------------
 
-def _mgn_mlp(gen, d_in, d_h, d_out, n_hidden=2):
+def _mgn_mlp(gen, device, d_in, d_h, d_out, n_hidden=2):
     dims = (d_in,) + (d_h,) * n_hidden + (d_out,)
-    return mlp_params(gen, dims, norm=True)
+    return mlp_params(gen, dims, norm=True, device=device)
 
 
-def init_meshgraphnet(gen: torch.Generator, cfg: GNNConfig):
+def init_meshgraphnet(gen: torch.Generator | None, cfg: GNNConfig, device):
     d = cfg.d_hidden
-    blocks = [{"edge": _mgn_mlp(gen, 3 * d, d, d, cfg.mlp_layers),
-               "node": _mgn_mlp(gen, 2 * d, d, d, cfg.mlp_layers)}
+    blocks = [{"edge": _mgn_mlp(gen, device, 3 * d, d, d, cfg.mlp_layers),
+               "node": _mgn_mlp(gen, device, 2 * d, d, d, cfg.mlp_layers)}
               for _ in range(cfg.n_layers)]
     return {
-        "node_enc": _mgn_mlp(gen, cfg.d_in, d, d, cfg.mlp_layers),
-        "edge_enc": _mgn_mlp(gen, cfg.d_edge, d, d, cfg.mlp_layers),
-        "dec": mlp_params(gen, (d, d, cfg.d_out)),
+        "node_enc": _mgn_mlp(gen, device, cfg.d_in, d, d, cfg.mlp_layers),
+        "edge_enc": _mgn_mlp(gen, device, cfg.d_edge, d, d, cfg.mlp_layers),
+        "dec": mlp_params(gen, (d, d, cfg.d_out), device=device),
         "blocks": blocks,
     }
 
@@ -213,20 +213,20 @@ def meshgraphnet_forward(cfg: GNNConfig, params, batch, lay: Layouts):
 # GraphCast (Lam et al.) — encode(grid→mesh) / process(mesh) / decode(mesh→grid)
 # ---------------------------------------------------------------------------
 
-def init_graphcast(gen: torch.Generator, cfg: GNNConfig):
+def init_graphcast(gen: torch.Generator | None, cfg: GNNConfig, device):
     d = cfg.d_hidden
-    blocks = [{"edge": _mgn_mlp(gen, 3 * d, d, d, 1),
-               "node": _mgn_mlp(gen, 2 * d, d, d, 1)}
+    blocks = [{"edge": _mgn_mlp(gen, device, 3 * d, d, d, 1),
+               "node": _mgn_mlp(gen, device, 2 * d, d, d, 1)}
               for _ in range(cfg.n_layers)]
     return {
-        "grid_enc": _mgn_mlp(gen, cfg.n_vars, d, d, 1),
-        "g2m_edge": _mgn_mlp(gen, cfg.d_edge, d, d, 1),
-        "mesh_edge": _mgn_mlp(gen, cfg.d_edge, d, d, 1),
-        "mesh_up": _mgn_mlp(gen, d, d, d, 1),
+        "grid_enc": _mgn_mlp(gen, device, cfg.n_vars, d, d, 1),
+        "g2m_edge": _mgn_mlp(gen, device, cfg.d_edge, d, d, 1),
+        "mesh_edge": _mgn_mlp(gen, device, cfg.d_edge, d, d, 1),
+        "mesh_up": _mgn_mlp(gen, device, d, d, d, 1),
         "blocks": blocks,
-        "m2g_edge": _mgn_mlp(gen, cfg.d_edge, d, d, 1),
-        "grid_up": _mgn_mlp(gen, 2 * d, d, d, 1),
-        "dec": mlp_params(gen, (d, d, cfg.n_vars)),
+        "m2g_edge": _mgn_mlp(gen, device, cfg.d_edge, d, d, 1),
+        "grid_up": _mgn_mlp(gen, device, 2 * d, d, d, 1),
+        "dec": mlp_params(gen, (d, d, cfg.n_vars), device=device),
     }
 
 
@@ -266,13 +266,17 @@ _FWD = {"gcn": gcn_forward, "pna": pna_forward,
         "meshgraphnet": meshgraphnet_forward, "graphcast": graphcast_forward}
 
 
-def init_gnn_params(gen: torch.Generator, cfg: GNNConfig):
-    """Parameters of ``cfg``'s architecture, drawn from ``gen`` on its
-    device (the JAX package's keys and shapes; other numbers)."""
-    p = _INIT[cfg.arch](gen, cfg)
+def init_gnn_params(gen: torch.Generator | None, cfg: GNNConfig,
+                    device: str | torch.device | None = None):
+    """Parameters of ``cfg``'s architecture, drawn from ``gen`` on
+    ``device`` (default ``gen``'s; the JAX package's keys and shapes,
+    other numbers); ``device="meta"`` gives shapes and dtypes only
+    (``gen`` may be None)."""
+    device = torch.device(device if device is not None else gen.device)
+    p = _INIT[cfg.arch](gen, cfg, device)
     if cfg.feature_table:
         p["features"] = torch.randn((cfg.feature_table, cfg.d_in),
-                                    generator=gen, device=gen.device) * 0.1
+                                    generator=gen, device=device) * 0.1
     return p
 
 

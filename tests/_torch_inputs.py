@@ -161,3 +161,15 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(threads)
+
+
+def elsewhere(*tensors):
+    """CPU tensors that report another device (``xpu``), to check that a
+    wrapper refuses every device but cuda, cpu and meta."""
+    import torch
+
+    class Elsewhere(torch.Tensor):
+        device = property(lambda self: torch.device("xpu"))
+        is_cpu = is_cuda = is_meta = property(lambda self: False)
+
+    return tuple(t.as_subclass(Elsewhere) for t in tensors)

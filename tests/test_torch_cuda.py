@@ -1107,3 +1107,136 @@ def test_cuda_reduced_lm_train_step_is_deterministic(cuda_device, arch):
         assert torch.equal(a, b)
     cpu = loss_fn(host, {k: v.cpu() for k, v in batch.items()})
     assert abs(float(runs[0][0]) - float(cpu)) <= 1e-2 * abs(float(cpu))
+
+
+# -- the dry run's cells on the card, the fault drill, compression --------------
+
+def _held():
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _step_temp(fn, args):
+    """The output of ``fn(*args)`` and the allocator's peak over it above
+    what was live before it."""
+    before = _held()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - before
+
+
+def _near(measured: int, traced: int) -> bool:
+    """Within 5% or 1 MiB (chip_smoke.py phase 13b's bound)."""
+    return abs(measured - traced) <= max(0.05 * traced, 2**20)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,shape", [("gcn-cora", "full_graph_sm"),
+                                        ("pna", "molecule")])
+def test_cuda_gnn_cell_equals_train_step_and_its_traced_peak(cuda_device,
+                                                             arch, shape):
+    """``make_cell`` on ``make_local_mesh()``, run on the card from
+    ``shape_run``'s arguments: the output equals ``train_step``'s bit for
+    bit, and the arguments' bytes on the card and the step's temporaries
+    each lie within 5% or 1 MiB of the meta trace's (chip_smoke.py phase
+    13b)."""
+    from repro_torch.configs import make_cell
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.meta_trace import trace_step
+    from repro_torch.tree import tree_leaves
+    cell = make_cell(arch, shape, make_local_mesh())
+    _, trace = trace_step(cell.fn, cell.args)
+    held = _held()
+    _, batch, params, opt, loss_fn, _ = train.shape_run(arch, shape,
+                                                        cuda_device, 0)
+    arg_bytes = _held() - held
+    # the entry point first: the process's first product takes cuBLAS's
+    # workspace, which stays for the process (live before chip_smoke.py's
+    # phase 13b, after twelve phases)
+    p, o, loss, gnorm = train.train_step(loss_fn, params, opt, batch, lr=1e-3)
+    out, temp = _step_temp(cell.fn, (params, opt, batch))
+    one = trace["one_device"]
+    assert _near(arg_bytes, one["argument_bytes"])
+    assert _near(temp, one["temp_bytes"])
+    for a, b in zip(tree_leaves(out), tree_leaves((p, o, {"loss": loss,
+                                                          "grad_norm": gnorm})),
+                    strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_dien_serve_cell_equals_the_forward(cuda_device):
+    import repro_torch.configs as configs
+    from repro_torch.configs import recsys_family
+    from repro_torch.data import DataCursor
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.meta_trace import trace_step
+    from repro_torch.models import dien
+    cell = configs.make_cell("dien", "serve_p99", make_local_mesh())
+    _, trace = trace_step(cell.fn, cell.args)
+    cfg = configs.get_arch("dien")[0]
+    held = _held()
+    params = dien.init_dien_params(
+        torch.Generator(device=cuda_device).manual_seed(0), cfg)
+    batch = recsys_family.shape_batch(cfg, "serve_p99", DataCursor(0, 0),
+                                      cuda_device)
+    arg_bytes = _held() - held
+    with torch.no_grad():     # first, as the GNN cells' entry point
+        want = dien.dien_forward(cfg, params, batch)[0]
+    out, temp = _step_temp(cell.fn, (params, batch))
+    one = trace["one_device"]
+    assert _near(arg_bytes, one["argument_bytes"])
+    assert _near(temp, one["temp_bytes"])
+    assert torch.equal(out, want)
+
+
+@pytest.mark.cuda
+def test_cuda_fault_drill_equals_a_run_without_failures(cuda_device,
+                                                        tmp_path):
+    """The reduced gcn-cora trained 8 steps with failures at 3 and 6 and
+    checkpoints every 2: replayed [2, 3, 6], the final state bit for bit
+    (chip_smoke.py phase 13c, tests/test_torch_runtime.py's drill)."""
+    from repro_torch.data import DataCursor
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime import CheckpointManager, FaultTolerantRunner
+    from repro_torch.tree import tree_leaves
+    _, _, params_init, loss_fn, data_fn = train.build("gcn-cora", True, 8,
+                                                      128, cuda_device)
+    params = params_init(torch.Generator(device=cuda_device).manual_seed(0))
+
+    def step_fn(state, step):
+        p, o, _, _ = train.train_step(loss_fn, state["params"], state["opt"],
+                                      data_fn(DataCursor(0, step)), lr=1e-2)
+        return {"params": p, "opt": o}
+    straight = {"params": params, "opt": adamw_init(params)}
+    for step in range(8):
+        straight = step_fn(straight, step)
+    runner = FaultTolerantRunner(CheckpointManager(str(tmp_path),
+                                                   device=cuda_device),
+                                 ckpt_every=2)
+    got, replayed = runner.run({"params": params, "opt": adamw_init(params)},
+                               step_fn, 8, fail_at={3, 6})
+    assert replayed == [2, 3, 6]
+    for a, b in zip(tree_leaves(got), tree_leaves(straight), strict=True):
+        assert a.device == b.device and torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_error_feedback_compression_matches_cpu(cuda_device, dtype):
+    from repro_torch.optim import ef_compress_update, init_residuals
+    rng = np.random.default_rng(3)
+    host = {"w": torch.from_numpy(rng.standard_normal((300, 70))
+                                  .astype(np.float32) * 1e-3).to(dtype),
+            "zero": torch.zeros(9, dtype=dtype),
+            "halves": torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5],
+                                   dtype=dtype)}
+    card = {k: v.to(cuda_device) for k, v in host.items()}
+    res_h, res_c = init_residuals(host), init_residuals(card)
+    for _ in range(5):
+        comp_h, res_h = ef_compress_update(host, res_h)
+        comp_c, res_c = ef_compress_update(card, res_c)
+        for k in host:
+            assert torch.equal(comp_c[k].cpu(), comp_h[k])
+            assert torch.equal(res_c[k].cpu(), res_h[k])

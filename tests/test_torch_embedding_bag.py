@@ -32,7 +32,7 @@ from repro_torch.kernels.segment_reduce import (  # noqa: E402
 from repro_torch.models import dien as tdien  # noqa: E402
 from repro_torch.models.embedding import embedding_bag as t_bag  # noqa: E402
 from repro_torch.models.embedding import embedding_lookup  # noqa: E402
-from _torch_inputs import bag_lookups  # noqa: E402
+from _torch_inputs import bag_lookups, elsewhere  # noqa: E402
 
 
 def _bits(a):
@@ -192,9 +192,13 @@ def test_wrapper_validates_inputs():
     with pytest.raises(ValueError, match="layout"):
         embedding_bag(table, ids, bags, w, n_bags=5,
                       layout=segment_layout(bags, 6))
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        embedding_bag(*(t.to("meta") for t in (table, ids, bags, w)),
-                      n_bags=5)
+    # meta tensors give the output's shape (the dry run's path)
+    on_meta = embedding_bag(*(t.to("meta") for t in (table, ids, bags, w)),
+                            n_bags=5)
+    assert on_meta.device.type == "meta" and on_meta.shape == (
+        5, table.shape[1])
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        embedding_bag(*elsewhere(table, ids, bags, w), n_bags=5)
     with pytest.raises(ValueError):
         t_bag(table, ids, bags, 5, mode="min")
     empty = embedding_bag(table, torch.zeros(0, dtype=torch.int32),

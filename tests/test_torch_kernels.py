@@ -30,6 +30,7 @@ from repro_torch.kernels.edge_relax.ref import (  # noqa: E402
 )
 from _torch_inputs import IDENTITY, SOURCE_VALUE  # noqa: E402
 from _torch_inputs import edges as _edges  # noqa: E402
+from _torch_inputs import elsewhere  # noqa: E402
 from _torch_inputs import state as _state  # noqa: E402
 from _torch_inputs import values as _values  # noqa: E402
 
@@ -244,6 +245,9 @@ def test_relax_multi_rejects_bad_inputs():
                     [tuple(t.expand(3, -1) for t in blk)], k=1, **kw)
     with pytest.raises(TypeError):
         relax_multi(vals, parent.long(), fro, [blk], k=1, **kw)
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        relax_multi(*elsewhere(vals, parent, fro), [elsewhere(*blk)], k=1,
+                    **kw)
     before = relax_multi.launches
     relax_multi(vals, parent, fro, [blk], k=2, **kw)
     assert relax_multi.launches == before

@@ -25,7 +25,7 @@ from repro_torch.kernels.segment_reduce import (  # noqa: E402
     segment_layout,
     segment_reduce_ref,
 )
-from _torch_inputs import index_case, messages  # noqa: E402
+from _torch_inputs import elsewhere, index_case, messages  # noqa: E402
 
 REDUCES = ("sum", "min", "max")
 
@@ -185,8 +185,12 @@ def test_wrapper_validates_inputs():
     with pytest.raises(ValueError, match="layout"):
         segment_reduce(data, seg, num_segments=5,
                        layout=segment_layout(seg, 6))
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        segment_reduce(data.to("meta"), seg.to("meta"), num_segments=5)
+    # meta tensors give the output's shape (the dry run's path)
+    on_meta = segment_reduce(data.to("meta"), seg.to("meta"), num_segments=5)
+    assert on_meta.device.type == "meta" and on_meta.shape == (5,) + tuple(
+        data.shape[1:])
+    with pytest.raises(ValueError, match="cuda, cpu or meta"):
+        segment_reduce(*elsewhere(data, seg), num_segments=5)
     empty = segment_reduce(torch.zeros((0, 3)), torch.zeros(0, dtype=torch.int32),
                            num_segments=2, reduce="max")
     assert empty.shape == (2, 3) and bool((empty == -np.inf).all())
