@@ -7,6 +7,9 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
 1. build: compile the CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, in parallel) and print the build seconds and the
    card's name and power limit;
+1b. lint: the port's graphlint (``repro_torch.analysis``, rules
+   T001-T010) over the checkout's ``src/repro_torch``; any finding fails.
+   Prints the rules run, the files checked and the seconds;
 2. relax kernels vs plain, on the card, on the blocks the main path gives
    them: a ``SnapshotStore`` of the main path's sequence (2^22 vertices,
    2^24 edges, 8 snapshots, 75,000 changes), its snapshot block (ks, and
@@ -3540,6 +3543,20 @@ def main() -> None:
     graph_made = generator.submit(host_graph, "minibatch_lg")
     print("[chip_smoke] phase 1: phase 3d's edges and phases 5-6's graph "
           "are being built on the host in a spawned process", flush=True)
+
+    # 1b. the port's graphlint over the checkout's src/repro_torch, beside
+    # the spawned host work
+    t0 = time.perf_counter()
+    from repro_torch.analysis import Linter
+    linter = Linter(root=src_dir.parent)
+    findings = linter.lint([src_dir / "repro_torch"])
+    if findings:
+        fail("phase 1b: graphlint findings in src/repro_torch:\n"
+             + "\n".join(f.render() for f in findings))
+    print(f"[chip_smoke] phase 1b: graphlint rules "
+          f"{','.join(r.id for r in linter.rules)} over "
+          f"{linter.files_checked} files of src/repro_torch: 0 findings in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
 
     # 2. kernels vs plain
     t0 = time.perf_counter()

@@ -40,8 +40,9 @@ the host, in time linear in the events.
 
 # The reference's graphlint rule G009 sanctions ingest_cut calls and
 # appends to a live sequence's arrays by the dotted name repro.core.ingest
-# only; this module is its port (the only ingest_cut caller is
-# Watermark.cut, as there), and the port's own rule set is ROADMAP.md §A9.
+# only, so it is off here; the port's own rule T009 (repro_torch.analysis)
+# holds this module instead (the only ingest_cut caller is Watermark.cut,
+# as there).
 # graphlint: disable-file=G009
 
 from __future__ import annotations

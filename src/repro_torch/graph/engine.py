@@ -28,8 +28,8 @@ chunk, chunks added to the running total, seed work added last.
 
 # The reference's graphlint rules G008/G010 sanction relax_sweep and
 # relax_sweep_fused calls by the dotted names repro.graph.engine and
-# repro.graph.stability only; this module is their port, and its own rule
-# set is queued in ROADMAP.md §A9.
+# repro.graph.stability only, so they are off here; the port's own rules
+# T008/T010 (repro_torch.analysis) hold this module's calls instead.
 # graphlint: disable-file=G008,G010
 
 from __future__ import annotations

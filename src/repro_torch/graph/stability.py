@@ -10,8 +10,9 @@ incremental launch's frontier seeding routes through :func:`seed_state`.
 """
 
 # The reference's graphlint rules G008/G010 sanction relax_sweep calls by
-# the dotted name repro.graph.stability only; this module is its port, and
-# its own rule set is queued in ROADMAP.md §A9.
+# the dotted name repro.graph.stability only, so they are off here; the
+# port's own rules T008/T010 (repro_torch.analysis) hold this module's
+# calls instead.
 # graphlint: disable-file=G008,G010
 
 from __future__ import annotations

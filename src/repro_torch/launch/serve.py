@@ -40,6 +40,7 @@ from repro_torch.core.service import QueryService
 from repro_torch.core.snapshots import SnapshotStore
 from repro_torch.core.window import slide_windows
 from repro_torch.data import DataCursor
+from repro_torch.graph.engine import host_sync
 from repro_torch.graph.generators import make_evolving_sequence
 from repro_torch.graph.semiring import ALL_SEMIRINGS
 from repro_torch.models.transformer import (
@@ -145,11 +146,6 @@ def _serve_graph(args):
     return service
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def serve_lm(cfg, params, tokens: torch.Tensor, decode_steps: int) -> dict:
     """The reference's ``--arch`` loop: prefill ``tokens`` [B, P], copy the
     prefill cache into one of ``P + decode_steps`` positions, take the
@@ -168,7 +164,7 @@ def serve_lm(cfg, params, tokens: torch.Tensor, decode_steps: int) -> dict:
     cache["v"][:, :, :p] = pcache["v"]
     del pcache
     next_tok = torch.argmax(prefill_logits, -1).to(torch.int32)[:, None]
-    _sync(device)
+    host_sync(next_tok)
     prefill_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     out_tokens, decode_logits = [next_tok], []
@@ -178,7 +174,7 @@ def serve_lm(cfg, params, tokens: torch.Tensor, decode_steps: int) -> dict:
         next_tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
         out_tokens.append(next_tok)
     out = torch.cat(out_tokens, dim=1)
-    _sync(device)
+    host_sync(out)
     return {"tokens": out, "prefill_logits": prefill_logits,
             "decode_logits": decode_logits, "prefill_s": prefill_s,
             "decode_s": time.perf_counter() - t0}
