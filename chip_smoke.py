@@ -2644,6 +2644,12 @@ def same_runs(what: str, got, want, keys) -> None:
         same_bits(f"{what} {key}", got.results[key], want.results[key])
 
 
+def span_s(spans: dict, name: str) -> float:
+    """Total seconds of the span ``name`` in ``trace.totals()["spans"]``
+    (``repro_torch.runtime.trace``); 0.0 where it never ran."""
+    return spans.get(name, {}).get("total_s", 0.0)
+
+
 def shard_phase(store, device) -> dict:
     """Phase 3c: lane sharding on phase 2's full-size store, the relax
     counts set to 0 just before and read just after. Per mesh (the card
@@ -2669,7 +2675,6 @@ def shard_phase(store, device) -> dict:
     from repro_torch.graph import ALL_SEMIRINGS, make_evolving_sequence
     from repro_torch.graph.edgeset import lane_bucket
     from repro_torch.graph.engine import (
-        ShardSeconds,
         gather_lane_states,
         incremental_additions_batched,
         incremental_additions_sharded,
@@ -2678,6 +2683,7 @@ def shard_phase(store, device) -> dict:
     from repro_torch.kernels import edge_relax, relax_multi
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_snapshot_mesh
+    from repro_torch.runtime import trace
 
     meshes = {"4 x cuda:0": make_snapshot_mesh([device] * 4)}
     if torch.cuda.device_count() >= 2:
@@ -2685,19 +2691,6 @@ def shard_phase(store, device) -> dict:
     sr = ALL_SEMIRINGS["sssp"]
     snaps = store.seq.num_snapshots
     windows = slide_windows(snaps, WINDOW)
-    # the set algebra each run does: delta_keys (the stacks' set
-    # differences, window intersections inside) timed on this store
-    set_algebra = [0.0]
-    delta_keys = store.delta_keys
-
-    def timed_delta_keys(parent, child):
-        t = time.perf_counter()
-        try:
-            return delta_keys(parent, child)
-        finally:
-            set_algebra[0] += time.perf_counter() - t
-
-    store.delta_keys = timed_delta_keys
     edge_relax.launches = 0
     relax_multi.launches = 0
     t_phase = time.perf_counter()
@@ -2722,17 +2715,20 @@ def shard_phase(store, device) -> dict:
     }
 
     def timed_run(fn, mesh):
-        ShardSeconds.split = ShardSeconds.replicas = ShardSeconds.gather = 0.0
-        set_algebra[0] = 0.0
+        # the set algebra each run does is the store.delta_keys span (the
+        # stacks' set differences, window intersections inside)
+        trace.reset()
         before = relax_multi.launches
         t = time.perf_counter()
-        run = fn(mesh)
+        with trace.recording():
+            run = fn(mesh)
         wall = time.perf_counter() - t
+        spans = trace.totals()["spans"]
         return run, dict(wall_s=wall, launches=relax_multi.launches - before,
-                         set_algebra_s=set_algebra[0],
-                         split_s=ShardSeconds.split,
-                         replicas_s=ShardSeconds.replicas,
-                         gather_s=ShardSeconds.gather)
+                         set_algebra_s=span_s(spans, "store.delta_keys"),
+                         split_s=span_s(spans, "shard.split"),
+                         replicas_s=span_s(spans, "shard.replicas"),
+                         gather_s=span_s(spans, "shard.gather"))
 
     rows = {}
     for label, mesh in meshes.items():
@@ -2867,7 +2863,6 @@ def shard_phase(store, device) -> dict:
               f"relax_multi launches {n_launch} vs {plain_n}", flush=True)
     launches = {"edge_relax": edge_relax.launches,
                 "edge_relax_multi": relax_multi.launches}
-    del store.delta_keys
     return dict(launches=launches, plan_s=plan_s, executors=rows,
                 gather_ms=gather_ms, service=service_row,
                 wall_s=time.perf_counter() - t_phase)
@@ -3051,10 +3046,11 @@ def commongraph_phase(device, host_edges, shapes=COMMONGRAPH_SHAPES_RUN,
         make_commongraph_cell,
     )
     from repro_torch.graph.edgeset import EdgeBlock
-    from repro_torch.graph.engine import ShardSeconds, host_sync, run_to_fixpoint
+    from repro_torch.graph.engine import host_sync, run_to_fixpoint
     from repro_torch.kernels import edge_relax, relax_multi
     from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR
     from repro_torch.launch.mesh import make_snapshot_mesh
+    from repro_torch.runtime import trace
 
     meshes = {"4 x cuda:0": make_snapshot_mesh([device] * 4)}
     if torch.cuda.device_count() >= 2:
@@ -3180,16 +3176,16 @@ def commongraph_phase(device, host_edges, shapes=COMMONGRAPH_SHAPES_RUN,
             if mcell.meta["lane_bucket"] != sb:
                 fail(f"{tag} on {label}: bucket {mcell.meta['lane_bucket']}"
                      f" vs {sb}")
-            ShardSeconds.split = ShardSeconds.replicas = 0.0
-            ShardSeconds.gather = 0.0
+            trace.reset()
             before = relax_multi.launches
             t0 = time.perf_counter()
-            got = host_sync(mcell.fn(*inputs))
+            with trace.recording():
+                got = host_sync(mcell.fn(*inputs))
             m_cold = (time.perf_counter() - t0) * 1e3
             m_launches = relax_multi.launches - before
-            host_s = dict(split=ShardSeconds.split,
-                          replicas=ShardSeconds.replicas,
-                          gather=ShardSeconds.gather)
+            spans = trace.totals()["spans"]
+            host_s = {part: span_s(spans, f"shard.{part}")
+                      for part in ("split", "replicas", "gather")}
             for i, part in enumerate(("values", "parent", "iterations",
                                       "edge_work")):
                 if got[i].device != out[i].device:

@@ -25,7 +25,6 @@ relaxes every edge itself. Only the lane axis is split
 
 from __future__ import annotations
 
-import time
 from typing import NamedTuple
 
 import numpy as np
@@ -44,13 +43,13 @@ from repro_torch.graph.edgeset import (
     unique_keys,
 )
 from repro_torch.graph.engine import (
-    ShardSeconds,
     batched_incremental,
     incremental_additions_sharded,
     run_to_fixpoint,
 )
 from repro_torch.graph.generators import edge_weights, rmat_edges
 from repro_torch.graph.semiring import SSSP
+from repro_torch.runtime import trace
 
 COMMONGRAPH_SHAPES = {
     # snapshots  nodes        CG edges      Δ edges (per snapshot)
@@ -101,13 +100,15 @@ def make_commongraph_cell(shape_id: str, mesh=None,
     def evolve_step(values, parent, cg_block, delta_block, lane_valid):
         # track_parents=False, as the reference: the deletion-free hop
         # never trims, so dependence tracking is dead weight.
-        if extent == 1:
-            res = batched_incremental(
-                SEMIRING, n, max_iters, values, parent, (cg_block,),
-                (delta_block,), track_parents=False, lane_valid=lane_valid)
-        else:
-            res = _sharded_step(mesh, n, max_iters, values, parent,
-                                cg_block, delta_block, lane_valid)
+        with trace.span("cell.step"):
+            if extent == 1:
+                res = batched_incremental(
+                    SEMIRING, n, max_iters, values, parent, (cg_block,),
+                    (delta_block,), track_parents=False,
+                    lane_valid=lane_valid)
+            else:
+                res = _sharded_step(mesh, n, max_iters, values, parent,
+                                    cg_block, delta_block, lane_valid)
         return res.values, res.parent, res.iterations, res.edge_work
 
     return Cell(
@@ -136,15 +137,14 @@ def _sharded_step(mesh, n, max_iters, values, parent, cg_block, delta_block,
                         f"{type(mesh).__name__}")
     shards = _shard_snapshot_axis(mesh, values, parent, (delta_block,),
                                   lane_valid)
-    t0 = time.perf_counter()
-    copies = {}
-    for shard in shards:
-        dev = shard.values.device
-        if dev not in copies:
-            copies[dev] = EdgeBlock(*(a.to(dev) for a in cg_block))
-    shards = [sd._replace(shared_blocks=(copies[sd.values.device],))
-              for sd in shards]
-    ShardSeconds.replicas += time.perf_counter() - t0
+    with trace.span("shard.replicas"):
+        copies = {}
+        for shard in shards:
+            dev = shard.values.device
+            if dev not in copies:
+                copies[dev] = EdgeBlock(*(a.to(dev) for a in cg_block))
+        shards = [sd._replace(shared_blocks=(copies[sd.values.device],))
+                  for sd in shards]
     return incremental_additions_sharded(n, SEMIRING, shards, max_iters,
                                          track_parents=False)
 

@@ -51,6 +51,7 @@ from repro_torch.graph.edgeset import (
     stack_delta_blocks,
 )
 from repro_torch.graph.generators import EvolvingSequence
+from repro_torch.runtime import trace
 
 
 def tightest_cover(candidates, window, size_fn):
@@ -287,14 +288,15 @@ class SnapshotStore:
             raise ValueError(
                 f"window ({i}, {j}) reaches below first_live="
                 f"{self.first_live}: snapshot {i} was retired by compact()")
-        k = j
-        while (i, k) not in self._t:
-            k -= 1
-        cur = self._t[(i, k)]
-        for m in range(k + 1, j + 1):
-            cur = np.intersect1d(cur, self.seq.snapshot_keys[m],
-                                 assume_unique=True)
-            self._t[(i, m)] = cur
+        with trace.span("store.window_keys"):
+            k = j
+            while (i, k) not in self._t:
+                k -= 1
+            cur = self._t[(i, k)]
+            for m in range(k + 1, j + 1):
+                cur = np.intersect1d(cur, self.seq.snapshot_keys[m],
+                                     assume_unique=True)
+                self._t[(i, m)] = cur
         return cur
 
     def window_size(self, i: int, j: int) -> int:
@@ -307,8 +309,9 @@ class SnapshotStore:
         ci, cj = child
         if not (pi <= ci and cj <= pj):
             raise ValueError(f"child window {child} not nested in parent {parent}")
-        return np.setdiff1d(self.window_keys(ci, cj), self.window_keys(pi, pj),
-                            assume_unique=True)
+        with trace.span("store.delta_keys"):
+            return np.setdiff1d(self.window_keys(ci, cj),
+                                self.window_keys(pi, pj), assume_unique=True)
 
     # -- device blocks ---------------------------------------------------------
 
@@ -317,11 +320,13 @@ class SnapshotStore:
         blk = self._cache_get(tag)
         if blk is not None:
             return blk
-        src, dst = keys_to_edges(keys, self.num_nodes)
-        w = self.seq.weights_for(keys)
-        blk = make_block(src, dst, w, self.num_nodes, granule=self.granule,
-                         pad_pow2=self.pad_pow2, device=self.device)
-        return self._cache_put(tag, blk)
+        with trace.span("store.block"):
+            src, dst = keys_to_edges(keys, self.num_nodes)
+            w = self.seq.weights_for(keys)
+            blk = make_block(src, dst, w, self.num_nodes,
+                             granule=self.granule, pad_pow2=self.pad_pow2,
+                             device=self.device)
+            return self._cache_put(tag, blk)
 
     def window_block(self, i: int, j: int) -> EdgeBlock:
         """T(i, j) as a single cached device block (tag family "T")."""
@@ -364,15 +369,17 @@ class SnapshotStore:
         blk = self._cache_get(tag)
         if blk is not None:
             return blk
-        lanes = []
-        for parent, child in hops:
-            keys = self.delta_keys(parent, child)
-            s, d = keys_to_edges(keys, self.num_nodes)
-            lanes.append((s, d, self.seq.weights_for(keys)))
-        blk = stack_delta_blocks(lanes, self.num_nodes, granule=self.granule,
-                                 pad_pow2=self.pad_pow2, num_lanes=num_lanes,
-                                 device=self.device)
-        return self._cache_put(tag, blk)
+        with trace.span("store.block"):
+            lanes = []
+            for parent, child in hops:
+                keys = self.delta_keys(parent, child)
+                s, d = keys_to_edges(keys, self.num_nodes)
+                lanes.append((s, d, self.seq.weights_for(keys)))
+            blk = stack_delta_blocks(lanes, self.num_nodes,
+                                     granule=self.granule,
+                                     pad_pow2=self.pad_pow2,
+                                     num_lanes=num_lanes, device=self.device)
+            return self._cache_put(tag, blk)
 
     def snapshot_view(self, i: int) -> EdgeView:
         """Standalone single-block view of S_i (used by from-scratch baselines)."""

@@ -33,7 +33,6 @@ from repro_torch.core.snapshots import SnapshotStore
 from repro_torch.graph.edgeset import EdgeBlock, EdgeView, lane_bucket
 from repro_torch.graph.engine import (
     LaneShard,
-    ShardSeconds,
     gather_lane_states,
     host_sync,
     incremental_additions,
@@ -43,6 +42,7 @@ from repro_torch.graph.engine import (
 )
 from repro_torch.graph.semiring import Semiring
 from repro_torch.graph.stability import stable_fraction_milli
+from repro_torch.runtime import trace
 
 Window = tuple[int, int]
 
@@ -104,18 +104,19 @@ def optimal_plan(store: SnapshotStore, i: int = 0, j: int | None = None,
 
     cost: dict[Window, int] = {(a, a): 0 for a in range(i, j + 1)}
     split: dict[Window, int] = {}
-    for span in range(1, j - i + 1):
-        for a in range(i, j + 1 - span):
-            b = a + span
-            s_ab = size(a, b)
-            best, arg = None, a
-            for m in range(a, b):
-                c = (price(size(a, m) - s_ab) + cost[(a, m)]
-                     + price(size(m + 1, b) - s_ab) + cost[(m + 1, b)])
-                if best is None or c < best:
-                    best, arg = c, m
-            cost[(a, b)] = best
-            split[(a, b)] = arg
+    with trace.span("plan.dp"):
+        for span in range(1, j - i + 1):
+            for a in range(i, j + 1 - span):
+                b = a + span
+                s_ab = size(a, b)
+                best, arg = None, a
+                for m in range(a, b):
+                    c = (price(size(a, m) - s_ab) + cost[(a, m)]
+                         + price(size(m + 1, b) - s_ab) + cost[(m + 1, b)])
+                    if best is None or c < best:
+                        best, arg = c, m
+                cost[(a, b)] = best
+                split[(a, b)] = arg
 
     root = PlanNode((i, j), [])
     stack = [root]
@@ -194,14 +195,16 @@ def _anchor_view(store, window, cg_split):
 
 def _anchor_base(store, window, semiring, source, max_iters, cg_split,
                  track_parents, fused_k=1):
-    """Anchor-window fixpoint shared by all executors: (view, result, stats)."""
-    t0 = time.perf_counter()
-    apex_view = _anchor_view(store, window, cg_split)
-    base = run_to_fixpoint(apex_view, semiring, source, max_iters,
-                           track_parents=track_parents, fused_k=fused_k)
-    host_sync(base.values)
-    base_stats = StreamStats(time.perf_counter() - t0, float(base.edge_work),
-                             int(base.iterations))
+    """Anchor-window fixpoint shared by all executors: (view, result,
+    stats); span ``fixpoint``."""
+    with trace.span("fixpoint"):
+        t0 = time.perf_counter()
+        apex_view = _anchor_view(store, window, cg_split)
+        base = run_to_fixpoint(apex_view, semiring, source, max_iters,
+                               track_parents=track_parents, fused_k=fused_k)
+        host_sync(base.values)
+        base_stats = StreamStats(time.perf_counter() - t0,
+                                 float(base.edge_work), int(base.iterations))
     return apex_view, base, base_stats
 
 
@@ -300,16 +303,16 @@ def _shard_snapshot_axis(mesh, values, parent, blocks, lane_valid):
         raise ValueError(f"the mesh's first device {mesh.devices[0]} is not "
                          f"the state's device {values.device}: results "
                          "are gathered onto the first device")
-    t0 = time.perf_counter()
     per = values.shape[0] // extent
     shards = []
-    for d, dev in enumerate(mesh.devices):
-        rows = slice(d * per, (d + 1) * per)
-        shards.append(LaneShard(
-            values[rows].to(dev), parent[rows].to(dev),
-            tuple(EdgeBlock(*(a[rows].to(dev) for a in b)) for b in blocks),
-            lane_valid[rows].to(dev)))
-    ShardSeconds.split += time.perf_counter() - t0
+    with trace.span("shard.split"):
+        for d, dev in enumerate(mesh.devices):
+            rows = slice(d * per, (d + 1) * per)
+            shards.append(LaneShard(
+                values[rows].to(dev), parent[rows].to(dev),
+                tuple(EdgeBlock(*(a[rows].to(dev) for a in b))
+                      for b in blocks),
+                lane_valid[rows].to(dev)))
     return shards
 
 
@@ -338,11 +341,10 @@ def _lane_launch(store: SnapshotStore, mesh, semiring: Semiring, values,
             seed_blocks=(delta_blocks[-1],), lane_valid=lane_valid, **kw)
     shards = _shard_snapshot_axis(mesh, values, parent, delta_blocks,
                                   lane_valid)
-    t0 = time.perf_counter()
-    shards = [s._replace(shared_blocks=store.replicas(shared_blocks,
-                                                      s.values.device))
-              for s in shards]
-    ShardSeconds.replicas += time.perf_counter() - t0
+    with trace.span("shard.replicas"):
+        shards = [s._replace(shared_blocks=store.replicas(shared_blocks,
+                                                          s.values.device))
+                  for s in shards]
     return incremental_additions_sharded(store.num_nodes, semiring, shards,
                                          **kw)
 
@@ -391,40 +393,45 @@ def run_plan_batched(
     prev_values = base.values[None]
     prev_parent = base.parent[None]
     for level in plan_levels(plan):
-        t0 = time.perf_counter()
-        lanes = len(level)
-        bucket = lane_bucket(lanes, data_extent)
-        lane_layout.append((lanes, bucket))
-        hop_stacked = store.delta_stack(
-            [(prev_nodes[pi].window, c.window) for pi, c in level],
-            num_lanes=bucket)
-        if any(prev_nodes[pi].window != apex_window for pi, _ in level):
-            prefix_stacked = store.delta_stack(
-                [(apex_window, prev_nodes[pi].window) for pi, _ in level],
+        with trace.span("hop.level"):
+            t0 = time.perf_counter()
+            lanes = len(level)
+            bucket = lane_bucket(lanes, data_extent)
+            lane_layout.append((lanes, bucket))
+            hop_stacked = store.delta_stack(
+                [(prev_nodes[pi].window, c.window) for pi, c in level],
                 num_lanes=bucket)
-            delta_blocks = (prefix_stacked, hop_stacked)
-        else:
-            delta_blocks = (hop_stacked,)   # level 1: parents ARE the apex
+            if any(prev_nodes[pi].window != apex_window for pi, _ in level):
+                prefix_stacked = store.delta_stack(
+                    [(apex_window, prev_nodes[pi].window) for pi, _ in level],
+                    num_lanes=bucket)
+                delta_blocks = (prefix_stacked, hop_stacked)
+            else:
+                delta_blocks = (hop_stacked,)   # level 1: parents ARE the apex
 
-        # Masked padding lanes re-run lane 0's parent state over an empty Δ:
-        # no frontier is ever seeded, values stay an inert copy, and
-        # lane_valid zeroes them out of the work accounting.
-        lane_map = [pi for pi, _ in level] + [0] * (bucket - lanes)
-        values, parent = gather_lane_states(prev_values, prev_parent, lane_map)
-        res = _lane_launch(store, mesh, semiring, values, parent,
-                           apex_view.blocks, delta_blocks, lanes,
-                           max_iters=max_iters, track_parents=track_parents,
-                           seed=seed, fused_k=fused_k)
-        host_sync(res.values)
-        hop_stats.append(StreamStats(time.perf_counter() - t0,
-                                     float(res.edge_work.sum()),
-                                     int(res.iterations.max())))
-        unstable_counts.extend(int(u) for u in res.unstable[:lanes])
-        for lane, (_, c) in enumerate(level):
-            if not c.children:
-                results[c.window[0]] = res.values[lane]
-        prev_nodes = [c for _, c in level]
-        prev_values, prev_parent = res.values, res.parent
+            # Masked padding lanes re-run lane 0's parent state over an
+            # empty Δ: no frontier is ever seeded, values stay an inert
+            # copy, and lane_valid zeroes them out of the work accounting.
+            lane_map = [pi for pi, _ in level] + [0] * (bucket - lanes)
+            values, parent = gather_lane_states(prev_values, prev_parent,
+                                                lane_map)
+            res = _lane_launch(store, mesh, semiring, values, parent,
+                               apex_view.blocks, delta_blocks, lanes,
+                               max_iters=max_iters,
+                               track_parents=track_parents, seed=seed,
+                               fused_k=fused_k)
+            host_sync(res.values)
+            wall = time.perf_counter() - t0
+            with trace.span("hop.stats"):
+                hop_stats.append(StreamStats(wall,
+                                             float(res.edge_work.sum()),
+                                             int(res.iterations.max())))
+                unstable_counts.extend(int(u) for u in res.unstable[:lanes])
+            for lane, (_, c) in enumerate(level):
+                if not c.children:
+                    results[c.window[0]] = res.values[lane]
+            prev_nodes = [c for _, c in level]
+            prev_values, prev_parent = res.values, res.parent
 
     return WorkSharingRun(results, base_stats, hop_stats,
                           time.perf_counter() - t_all,

@@ -34,16 +34,18 @@ chunk, chunks added to the running total, seed work added last.
 
 from __future__ import annotations
 
-import time
+import contextlib
 from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.graph.edgeset import EdgeBlock, EdgeView
 from repro_torch.graph.semiring import Semiring
 from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR
 from repro_torch.kernels.edge_relax_multi.ops import relax_multi
+from repro_torch.runtime import trace
 
 INT_MAX = torch.iinfo(torch.int32).max
 NO_PARENT = -1
@@ -100,8 +102,9 @@ def host_sync(x):
     of them) has finished, returning ``x`` — THE sanctioned host-sync point
     for wall-clock timing (``torch.cuda.synchronize`` on each CUDA device
     involved; a no-op for CPU tensors)."""
-    for dev in {t.device for t in _tensors(x) if t.is_cuda}:
-        torch.cuda.synchronize(dev)
+    with trace.span("host.sync"):
+        for dev in {t.device for t in _tensors(x) if t.is_cuda}:
+            torch.cuda.synchronize(dev)
     return x
 
 
@@ -189,28 +192,83 @@ def _fixpoint_shards(semiring: Semiring, num_nodes: int, max_iters: int,
     shard that still has a running lane, then reads all shards' flags at
     once. A shard whose lanes have all stopped would run 0 sweeps and add
     +0.0 work, so it is skipped; every lane's values, parents, iterations
-    and work equal an unsharded run's."""
-    states = []
-    for values, parent, frontier, blocks in shards:
-        lanes = values.shape[0]
-        it = torch.zeros(lanes, dtype=torch.int32, device=values.device)
-        work = torch.zeros(lanes, dtype=torch.float32, device=values.device)
-        states.append([values, parent, frontier, it, work, tuple(blocks)])
-    flags = _live_flags([s[2].any(1) & (s[3] < max_iters) for s in states])
-    while any(flags):
-        for state, running in zip(states, flags):
-            if not running:
-                continue
-            values, parent, frontier, it, work, blocks = state
-            cap = torch.clamp(max_iters - it, max=fused_k)
-            values, parent, frontier, sweeps, dw = relax_sweep_fused(
-                semiring, num_nodes, values, parent, frontier, blocks,
-                k=fused_k, allowed=cap, track_parents=track_parents)
-            # lanes that did not run add 0 sweeps and +0.0 work: unchanged
-            state[:5] = values, parent, frontier, it + sweeps, work + dw
-        flags = _live_flags([s[2].any(1) & (s[3] < max_iters)
+    and work equal an unsharded run's.
+
+    Spans ``engine.fixpoint`` (the call), ``engine.launch`` (a round's
+    enqueue, from one flag read to the next) and ``engine.flag_read``;
+    while a recording is on, counters ``engine.rounds`` (flag reads) and,
+    on the device, ``engine.sweeps`` (the call's most lane iterations),
+    ``engine.active_edges`` (the chunks' work, summed over lanes) and
+    ``engine.attempted_edges`` (each lane's real edges times its
+    iterations)."""
+    with trace.span("engine.fixpoint"):
+        rec = trace.active()
+        states = []
+        for values, parent, frontier, blocks in shards:
+            lanes = values.shape[0]
+            it = torch.zeros(lanes, dtype=torch.int32, device=values.device)
+            work = torch.zeros(lanes, dtype=torch.float32,
+                               device=values.device)
+            states.append([values, parent, frontier, it, work, tuple(blocks)])
+        real = [_real_edges(s[5], num_nodes) for s in states] if rec \
+            else None
+        flags = _read_flags([s[2].any(1) & (s[3] < max_iters)
                              for s in states])
+        while any(flags):
+            with trace.span("engine.launch"):
+                for state, running in zip(states, flags):
+                    if not running:
+                        continue
+                    values, parent, frontier, it, work, blocks = state
+                    cap = torch.clamp(max_iters - it, max=fused_k)
+                    values, parent, frontier, sweeps, dw = relax_sweep_fused(
+                        semiring, num_nodes, values, parent, frontier,
+                        blocks, k=fused_k, allowed=cap,
+                        track_parents=track_parents)
+                    # lanes that did not run add 0 sweeps and +0.0 work
+                    state[:5] = (values, parent, frontier, it + sweeps,
+                                 work + dw)
+                lives = [s[2].any(1) & (s[3] < max_iters) for s in states]
+            flags = _read_flags(lives)
+            del lives   # freed before the next round, as the peak expects
+        if rec:
+            dev = states[0][0].device
+            most = [s[3].max() for s in states]
+            trace.add("engine.sweeps", most[0] if len(most) == 1 else
+                      torch.stack([m.to(dev) for m in most]).max())
+            for state, r in zip(states, real):
+                trace.add("engine.active_edges", state[4])
+                trace.add("engine.attempted_edges", r * state[3])
     return [FixpointResult(s[0], s[1], s[3], s[4]) for s in states]
+
+
+def _read_flags(lives: "list[torch.Tensor]") -> "list[bool]":
+    """``_live_flags`` in its span, counted as one round."""
+    with trace.span("engine.flag_read"):
+        flags = _live_flags(lives)
+    trace.count("engine.rounds")
+    return flags
+
+
+# each block's real-edge count, reckoned once and kept while the block
+# lives (blocks are never written after they are made, and the store and
+# the cells reuse theirs query after query): ``dst`` -> (num_nodes, count)
+_REAL_EDGES = WeakIdKeyDictionary()
+
+
+def _real_edges(blocks: Blocks, num_nodes: int):
+    """The real edges (``dst < num_nodes``) a sweep over ``blocks`` meets
+    on each lane: the shared blocks' count plus, where stacked blocks
+    are, each lane's row count (int64 on the blocks' device, a scalar or
+    ``[S]``; never read on the host)."""
+    counts = []
+    for _, dst, _ in blocks:
+        got = _REAL_EDGES.get(dst)
+        if got is None or got[0] != num_nodes:
+            got = _REAL_EDGES[dst] = (
+                num_nodes, (dst < num_nodes).sum(-1, dtype=torch.int64))
+        counts.append(got[1])
+    return sum(counts[1:], counts[0]) if counts else 0
 
 
 def _fixpoint(semiring: Semiring, num_nodes: int, max_iters: int,
@@ -312,10 +370,12 @@ def gather_lane_states(values: torch.Tensor, parent: torch.Tensor,
     ``values``/``parent`` are the previous level's stacked states
     ``[P, N]``; ``lane_to_parent[l]`` names the parent lane whose state
     seeds lane ``l``. One device gather keeps the states on the device.
+    Span ``hop.lane_gather``.
     """
-    idx = torch.as_tensor(np.asarray(lane_to_parent, dtype=np.int64),
-                          device=values.device)
-    return values[idx], parent[idx]
+    with trace.span("hop.lane_gather"):
+        idx = torch.as_tensor(np.asarray(lane_to_parent, dtype=np.int64),
+                              device=values.device)
+        return values[idx], parent[idx]
 
 
 class LaneShard(NamedTuple):
@@ -331,32 +391,21 @@ class LaneShard(NamedTuple):
     shared_blocks: Blocks = ()    # broadcast blocks on the shard's device
 
 
-class ShardSeconds:
-    """Host seconds the sharded launches spent splitting the lane axis
-    (``split``), placing shared blocks on the mesh's devices
-    (``replicas``) and gathering results (``gather``); like the kernels'
-    launch counts, callers set the fields to 0 and read them after."""
-
-    split = 0.0
-    replicas = 0.0
-    gather = 0.0
-
-
 def _incremental_shards(semiring, num_nodes, max_iters, shards,
                         track_parents, seed, fused_k) -> FixpointResult:
     """Seed, run and gather lane shards, each ``(values, parent, blocks,
     seed_blocks, lane_valid)`` on its own device; the result lies on the
     first shard's device, lanes in shard order."""
     from repro_torch.graph.stability import seed_state
-    seeded = [seed_state(semiring, num_nodes, values, parent, seeds,
-                         mode=seed, track_parents=track_parents)
-              for values, parent, _, seeds, _ in shards]
+    with trace.span("engine.seed"):
+        seeded = [seed_state(semiring, num_nodes, values, parent, seeds,
+                             mode=seed, track_parents=track_parents)
+                  for values, parent, _, seeds, _ in shards]
     runs = _fixpoint_shards(
         semiring, num_nodes, max_iters,
         [(sd.values, sd.parent, sd.frontier, blocks)
          for sd, (_, _, blocks, _, _) in zip(seeded, shards)],
         track_parents, fused_k)
-    t0 = time.perf_counter()
     dev = shards[0][0].device
 
     def gather(parts):
@@ -364,14 +413,14 @@ def _incremental_shards(semiring, num_nodes, max_iters, shards,
             return parts[0]
         return torch.cat([t.to(dev) for t in parts])
 
-    values = gather([r.values for r in runs])
-    parent = gather([r.parent for r in runs])
-    iterations = gather([r.iterations for r in runs]) + 1
-    work = gather([r.edge_work for r in runs]) \
-        + gather([sd.seed_work for sd in seeded])
-    unstable = gather([sd.unstable for sd in seeded])
-    if len(shards) > 1:
-        ShardSeconds.gather += time.perf_counter() - t0
+    with trace.span("shard.gather") if len(shards) > 1 \
+            else contextlib.nullcontext():
+        values = gather([r.values for r in runs])
+        parent = gather([r.parent for r in runs])
+        iterations = gather([r.iterations for r in runs]) + 1
+        work = gather([r.edge_work for r in runs]) \
+            + gather([sd.seed_work for sd in seeded])
+        unstable = gather([sd.unstable for sd in seeded])
     if shards[0][4] is None:
         return FixpointResult(values, parent, iterations, work, unstable)
     lane_valid = gather([s[4] for s in shards])
