@@ -15,14 +15,17 @@ Phases, one line each, any failure exits non-zero (nothing is caught):
    2^24 edges, 8 snapshots, 75,000 changes), its snapshot block (ks, and
    the ``--verify`` sweep), its common-graph block plus one snapshot's Δ
    block (dh, ws) and plus the stacked Δ of all 8 snapshots (dhb, wsb's
-   first level). All five semirings, k in {1, 4}, parents tracked and not,
-   lanes in {1, 8}, each call with an ``allowed`` cap on one lane and an
-   early-exit lane; every output must equal the plain version bit for bit.
-   Prints kernel, plain and library times, the bytes bound and the sector
-   floor per shape (``relax_bytes``); then replays the main path's own
-   sweeps call by call (``main_path_sweeps``: the dh and dhb incremental
-   fixpoints, the ks from-scratch fixpoint), each call bit for bit against
-   the plain version and timed, with its active edges, bound and floor;
+   first level). All five semirings, k in {1, 4, 32}, parents tracked and
+   not, lanes in {1, 8}, each call with an ``allowed`` cap on one lane and
+   an early-exit lane; k = 32 starts from running work totals and runs
+   past every lane's fixpoint; every output must equal the plain version
+   bit for bit. Prints kernel, plain and library times, the bytes bound
+   and the sector floor per shape (``relax_bytes``); then replays the main
+   path's own calls in the engine's chunks (``main_path_sweeps``: the dh
+   and dhb incremental fixpoints, the ks from-scratch fixpoint), each call
+   bit for bit against the plain version, as one call and as one round a
+   call (``round_by_round``), and timed, with its rounds, active edges and
+   the bound and floor of every round it ran;
    the replay also covers the window path: the batched slide's launch
    (5 width-4 windows on 8 lanes, 3 of them masked) and the stream's
    anchor hop T(0, 7) -> T(2, 7);
@@ -437,20 +440,57 @@ def relax_work(blocks, frontier, n: int):
     return edges, active, pairs
 
 
-def relax_bytes(blocks, frontier, track: bool, n: int):
+def relax_bytes(blocks, frontier, track: bool, n: int, lanes=None):
     """(bound bytes, sector-floor bytes, active pairs) of one relax_multi
     sweep.
 
     Bound: src of every edge slot, dst and w of the active edges only (an
-    edge whose src is on no frontier needs nothing more), and the lane
-    states (values, frontier, parents when tracked) read once and written
-    once. Sector floor: the bound plus, where the lanes' state is larger
-    than the L2, a 32-byte sector for each candidate's random value
-    gather."""
+    edge whose src is on no frontier needs nothing more), and the states
+    of ``lanes`` lanes (default: every lane of ``frontier``; values,
+    frontier, parents when tracked) read once and written once. Sector
+    floor: the bound plus, where those states are larger than the L2, a
+    32-byte sector for each candidate's random value gather."""
     edges, active, pairs = relax_work(blocks, frontier, n)
-    state = frontier.shape[0] * n * (4 + 1 + (4 if track else 0))
+    lanes = frontier.shape[0] if lanes is None else lanes
+    state = lanes * n * (4 + 1 + (4 if track else 0))
     nbytes = 4 * edges + 8 * active + 2 * state
     return nbytes, nbytes + (32 * pairs if state > L2_BYTES else 0), pairs
+
+
+def round_by_round(args, kw, n: int):
+    """One relax_multi call (``args``, ``kw``) made again by the plain
+    version one round at a time (k = 1, each round's work added to the
+    lanes' running totals, the lanes that do not run masked). Returns its
+    outputs, which must equal the call's bit for bit, and over the rounds
+    in which some lane ran: the sums of ``relax_bytes`` (bound, sector
+    floor, active pairs) and the number of rounds. Round 0 reads and
+    writes every lane's state, a later round only the running lanes'."""
+    import torch
+    from repro_torch.kernels.edge_relax_multi.ref import relax_multi_ref
+    values, parent, frontier, blocks, allowed = args
+    k, track, work = kw["k"], kw["track_parents"], kw.get("work")
+    lanes, dev = values.shape[0], values.device
+    cap = (allowed if isinstance(allowed, torch.Tensor)
+           else torch.full((lanes,), k if allowed is None else allowed,
+                           dtype=torch.int32, device=dev))
+    sweeps = torch.zeros(lanes, dtype=torch.int32, device=dev)
+    nbytes = floor = pairs = rounds = 0
+    for r in range(k):
+        run = frontier.any(1) & (r < cap)
+        if not bool(run.any()):
+            break
+        b, f, p = relax_bytes(blocks, frontier & run[:, None], track, n,
+                              lanes=None if r == 0 else int(run.sum()))
+        nbytes, floor, pairs, rounds = (nbytes + b, floor + f, pairs + p,
+                                        rounds + 1)
+        values, parent, frontier, ran, work = relax_multi_ref(
+            values, parent, frontier, blocks, run.to(torch.int32),
+            op=kw["op"], num_nodes=n, k=1, track_parents=track, work=work)
+        sweeps = sweeps + ran
+    if work is None:
+        work = torch.zeros(lanes, dtype=torch.float32, device=dev)
+    return (values, parent, frontier, sweeps, work), (nbytes, floor, pairs,
+                                                     rounds)
 
 
 def relax_timing(fn, reps: int) -> dict:
@@ -459,8 +499,11 @@ def relax_timing(fn, reps: int) -> dict:
 
 
 def main_path_sweeps(store, sr, call=None):
-    """Replay the relax_multi calls of three of the main path's fixpoints,
-    one call of k = 1 at a time, until every lane's frontier is empty:
+    """Replay the relax_multi calls of the main path's fixpoints as the
+    engine makes them: after the seed sweep, chunks of the engine's own
+    lengths (``_chunk_sweeps``: 4, 8, 16, 32, 32, ...), each lane allowed
+    ``min(k, max_iters - iterations)`` rounds and its running work passed
+    in, until every lane's frontier is empty:
 
     * ``dh``: Direct-Hop's hop to snapshot 1 (phase 2's dh shape): the
       seed sweep on its Δ block from the anchor state (the from-scratch
@@ -486,7 +529,11 @@ def main_path_sweeps(store, sr, call=None):
     import torch
     from repro_torch.core import slide_windows
     from repro_torch.graph.edgeset import lane_bucket
-    from repro_torch.graph.engine import init_values, run_to_fixpoint
+    from repro_torch.graph.engine import (
+        _chunk_sweeps,
+        init_values,
+        run_to_fixpoint,
+    )
     from repro_torch.kernels import relax_multi
     from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR
 
@@ -509,16 +556,20 @@ def main_path_sweeps(store, sr, call=None):
               "anchor_hop": (1, store.delta_block(
                   window, (min(CAMPAIGN_WIDTH, snaps - 1), snaps - 1)))}
 
+    max_iters = 10_000   # the engine's default
+
     def fixpoint(case, values, parent, frontier, blocks, track):
-        kw = dict(op=KERNEL_OP_FOR[sr.name], num_nodes=n, k=1,
-                  track_parents=track)
         it = torch.zeros(values.shape[0], dtype=torch.int32, device=dev)
         work = torch.zeros(values.shape[0], dtype=torch.float32, device=dev)
-        calls = 0
-        while bool(frontier.any()):
-            values, parent, frontier, sweeps, dw = call(
-                case, (values, parent, frontier, blocks, 1), kw)
-            it, work, calls = it + sweeps, work + dw, calls + 1
+        launched = calls = 0
+        while bool((frontier.any(1) & (it < max_iters)).any()):
+            k = _chunk_sweeps(None, launched, max_iters)
+            kw = dict(op=KERNEL_OP_FOR[sr.name], num_nodes=n, k=k,
+                      track_parents=track, work=work)
+            values, parent, frontier, sweeps, work = call(
+                case, (values, parent, frontier, blocks,
+                       torch.clamp(max_iters - it, max=k)), kw)
+            it, launched, calls = it + sweeps, launched + k, calls + 1
         return dict(values=values, parent=parent, frontier=frontier,
                     iterations=it, work=work, calls=calls)
 
@@ -648,7 +699,10 @@ def kernel_phase(device, timing=relax_timing, keep=None):
           flush=True)
 
     # relax_multi on the common graph plus Δ: semirings x k x parents x
-    # lanes, with an allowed cap, an empty lane and an early-exit lane
+    # lanes, with an allowed cap, an empty lane and an early-exit lane; the
+    # engine's longest chunk (k = 32) starts 16 sweeps before the slowest
+    # lane's fixpoint, from the lanes' state and running work there (plus
+    # 2^24 - 3), and runs past every fixpoint, so its last rounds are dead
     err, cases = 0.0, 0
     for name in sorted(ALL_SEMIRINGS):
         sr = ALL_SEMIRINGS[name]
@@ -659,27 +713,40 @@ def kernel_phase(device, timing=relax_timing, keep=None):
                 frontier[0] = False
                 frontier[1] = sink
             blocks = [tuple(cg), tuple(deltas[lanes])]
-            for k in (1, 4):
+            for k in (1, 4, 32):
                 allowed = torch.full((lanes,), k, dtype=torch.int32,
                                      device=device)
-                if k > 1:
-                    allowed[-1] = 2               # a capped lane
-                elif lanes > 1:
-                    allowed[-1] = 0               # a lane allowed nothing
+                if lanes > 1:                     # a lane allowed nothing
+                    allowed[-1] = 0 if k == 1 else 2  # or a capped lane
+                elif k == 4:
+                    allowed[-1] = 2
+                state, work = (values, parent, frontier), None
+                if k == 32:
+                    kw = dict(op=op, num_nodes=n, track_parents=True)
+                    full = relax_multi_ref(*state, blocks, k=10_000, **kw)
+                    ahead = max(int(full[3].max()) - 16, 1)
+                    *state, _, work = relax_multi_ref(*state, blocks,
+                                                      k=ahead, **kw)
+                    work = work + (2**24 - 3)
+                    del full
                 for track in (True, False):
-                    kw = dict(op=op, num_nodes=n, k=k, track_parents=track)
-                    got = relax_multi(values, parent, frontier, blocks,
-                                      allowed, **kw)
-                    want = relax_multi_ref(values, parent, frontier, blocks,
-                                           allowed, **kw)
+                    kw = dict(op=op, num_nodes=n, k=k, track_parents=track,
+                              work=work)
+                    got = relax_multi(*state, blocks, allowed, **kw)
+                    want = relax_multi_ref(*state, blocks, allowed, **kw)
                     tag = f"relax_multi[{name},lanes={lanes},k={k},track={track}]"
                     for part, g, r in zip(
                             ("values", "parent", "frontier", "sweeps",
                              "work"), got, want):
                         err = max(err, same_bits(f"{tag} {part}", g, r))
-                    if lanes > 1 and int(got[3][1]) != 1:
+                    if lanes > 1 and k < 32 and int(got[3][1]) != 1:
                         fail(f"{tag}: early-exit lane ran {int(got[3][1])} "
                              "sweeps")
+                    free = allowed == k
+                    if k == 32 and (bool(got[2][free].any())
+                                    or int(got[3].max()) >= k):
+                        fail(f"{tag}: a lane ran to the chunk's end, "
+                             f"sweeps {got[3].tolist()}")
                     cases += 1
     print(f"[chip_smoke] relax_multi: {cases} cases bit-exact (values, "
           "parent, frontier, sweeps, work)", flush=True)
@@ -709,25 +776,25 @@ def kernel_phase(device, timing=relax_timing, keep=None):
               f"{timed[label]['bound_ms']:.3f} ms, sector floor "
               f"{timed[label]['sector_floor_ms']:.3f} ms", flush=True)
 
-    # the main path's own sweeps, replayed call by call: each held bit for
-    # bit against the plain version, timed, with its active edges
+    # the main path's own calls, replayed in the engine's chunks: each held
+    # bit for bit against the plain version, as one call and one round a
+    # call, timed, with its rounds, active edges and every round's bytes
     main_path = {}
 
     def held_call(case, args, kw):
         got = relax_multi(*args, **kw)
         want = relax_multi_ref(*args, **kw)
+        rounds, (nbytes, floor, pairs, ran) = round_by_round(args, kw, n)
         calls = main_path.setdefault(case, [])
-        tag = f"relax_multi[main path {case}, call {len(calls)}]"
-        for part, g, r in zip(("values", "parent", "frontier", "sweeps",
-                               "work"), got, want):
+        tag = f"relax_multi[main path {case}, call {len(calls)}, k={kw['k']}]"
+        for part, g, r, o in zip(("values", "parent", "frontier", "sweeps",
+                                  "work"), got, want, rounds):
             same_bits(f"{tag} {part}", g, r)
-        del want
+            same_bits(f"{tag} {part} vs one round a call", g, o)
+        del want, rounds
         t = timing(lambda: relax_multi(*args, **kw), 5)
-        _, _, frontier, blocks, _ = args
-        nbytes, floor, pairs = relax_bytes(blocks, frontier,
-                                           kw["track_parents"], n)
-        calls.append(dict(t, active_edges=pairs,
-                          frontier=int(frontier.sum()),
+        calls.append(dict(t, k=kw["k"], rounds=ran, active_edges=pairs,
+                          frontier=int(args[2].sum()),
                           bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
                           sector_floor_ms=floor / HBM_BYTES_PER_S * 1e3))
         return got
@@ -743,8 +810,9 @@ def kernel_phase(device, timing=relax_timing, keep=None):
         print(f"[chip_smoke] relax_multi main path {case}: {len(calls)} "
               f"calls bit-exact, kernel {sums['ms']:.3f} ms in all, bound "
               f"{sums['bound_ms']:.3f} ms, sector floor "
-              f"{sums['sector_floor_ms']:.3f} ms; active edges per call "
-              f"{[c['active_edges'] for c in calls]}", flush=True)
+              f"{sums['sector_floor_ms']:.3f} ms; (k, rounds run) per call "
+              f"{[(c['k'], c['rounds']) for c in calls]}, active edges per "
+              f"call {[c['active_edges'] for c in calls]}", flush=True)
     print(f"[chip_smoke] relax_multi main-path replay in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     dh = timed["dh"]

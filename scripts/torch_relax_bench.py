@@ -11,7 +11,9 @@ each held bit for bit against that tree's plain version: ``edge_relax`` on
 the snapshot block, ``relax_multi`` at the ks, dh and dhb shapes, and the
 main path's own sweeps (``chip_smoke.main_path_sweeps``: the dh and dhb
 incremental fixpoints, the batched window slide's launch, the stream's
-anchor hop and the ks from-scratch fixpoint, one call at a time). Each call is timed as back-to-back ms, device µs (calls queued
+anchor hop and the ks from-scratch fixpoint, in the engine's chunks;
+so every tree needs ``engine._chunk_sweeps`` and ``relax_multi``'s
+``work=``). Each call is timed as back-to-back ms, device µs (calls queued
 behind a sleep, so the host never holds the card back) and the wrapper's
 host µs per call, beside the bound and the sector floor. With ``--evolve``
 each tree then runs ``scripts/torch_device_share.py``'s warm pass at full

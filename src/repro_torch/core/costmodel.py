@@ -89,7 +89,8 @@ class SweepCostModel:
 
 
 def measure_sweep_nanos(view, semiring, source, *,
-                        track_parents: bool = False, fused_k: int = 1,
+                        track_parents: bool = False,
+                        fused_k: int | None = None,
                         repeats: int = 3) -> int:
     """Measured wall nanoseconds of ONE frontier-masked sweep over ``view``.
 
@@ -116,7 +117,7 @@ def measure_sweep_nanos(view, semiring, source, *,
 
 
 def calibrate(store, semiring, source, *, stable_milli: int = 0,
-              track_parents: bool = False, fused_k: int = 1,
+              track_parents: bool = False, fused_k: int | None = None,
               repeats: int = 3) -> SweepCostModel:
     """Fit a :class:`SweepCostModel` from two measured sweep scales.
 

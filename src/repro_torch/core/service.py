@@ -84,7 +84,7 @@ class ServiceClient:
     # fused-chunk size of every launch serving this client: a launch
     # option (same results at any value), so it joins the admission key
     # but not the anchor-state qkey
-    fused_k: int = 1
+    fused_k: int | None = None
     feed: "object | None" = None
     results: "dict[Window, torch.Tensor]" = dataclasses.field(
         default_factory=dict)
@@ -230,7 +230,7 @@ class QueryService:
                  campaign_width: int = 4, name: "str | None" = None,
                  horizon: "int | None" = None, max_iters: int = 10_000,
                  cg_split: int = 1, track_parents: bool = False,
-                 fused_k: int = 1,
+                 fused_k: int | None = None,
                  feed: "object | None" = None) -> ServiceClient:
         """Add a client; returns its :class:`ServiceClient` handle.
 

@@ -194,7 +194,7 @@ def _anchor_view(store, window, cg_split):
 
 
 def _anchor_base(store, window, semiring, source, max_iters, cg_split,
-                 track_parents, fused_k=1):
+                 track_parents, fused_k=None):
     """Anchor-window fixpoint shared by all executors: (view, result,
     stats); span ``fixpoint``."""
     with trace.span("fixpoint"):
@@ -217,7 +217,7 @@ def run_plan(
     cg_split: int = 1,
     track_parents: bool = False,
     seed: str = "instability",
-    fused_k: int = 1,
+    fused_k: int | None = None,
 ) -> WorkSharingRun:
     """Execute a TG plan (DFS; each hop = addition-only incremental update).
 
@@ -319,7 +319,7 @@ def _shard_snapshot_axis(mesh, values, parent, blocks, lane_valid):
 def _lane_launch(store: SnapshotStore, mesh, semiring: Semiring, values,
                  parent, shared_blocks, delta_blocks, lanes: int, *,
                  max_iters: int, track_parents: bool, seed: str,
-                 fused_k: int):
+                 fused_k: int | None):
     """ONE batched launch of the executors (``run_plan_batched``'s levels,
     ``core/window.py``'s slides) over ``lanes`` valid lanes, padded to
     ``lane_bucket(lanes, data_extent)`` with masked trailing lanes. The
@@ -359,7 +359,7 @@ def run_plan_batched(
     track_parents: bool = False,
     mesh=None,
     seed: str = "instability",
-    fused_k: int = 1,
+    fused_k: int | None = None,
 ) -> WorkSharingRun:
     """Execute a TG plan level-synchronously: one batched launch per depth.
 

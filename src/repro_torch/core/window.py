@@ -146,7 +146,7 @@ def run_window_slide(
     cg_split: int = 1,
     track_parents: bool = False,
     seed: str = "instability",
-    fused_k: int = 1,
+    fused_k: int | None = None,
 ) -> WindowSlideRun:
     """Sequential window slide: one anchor fixpoint, then one
     ``incremental_additions`` hop per window, seeded per the stable-vertex
@@ -206,7 +206,7 @@ def run_window_slide_batched(
     track_parents: bool = False,
     mesh=None,
     seed: str = "instability",
-    fused_k: int = 1,
+    fused_k: int | None = None,
 ) -> WindowSlideRun:
     """Batched window slide: every slide hop as a lane of ONE stacked
     launch (``_slide_launch``), the anchor state broadcast to all lanes;
@@ -238,7 +238,7 @@ def _slide_launch(store: SnapshotStore, semiring: Semiring, anchor_view,
                   windows: "list[Window]", anchor: Window,
                   *, max_iters: int, track_parents: bool, mesh=None,
                   lane_map: "list[int] | None" = None,
-                  seed: str = "instability", fused_k: int = 1):
+                  seed: str = "instability", fused_k: int | None = None):
     """ONE stacked launch re-converging every window from anchor state(s).
 
     ``state`` is a single :class:`QueryState` broadcast to every window
@@ -595,7 +595,8 @@ class WindowStreamRun:
 def _acquire_anchor_state(store: SnapshotStore, qkey: tuple, anchor: Window,
                           semiring: Semiring, source: int, max_iters: int,
                           cg_split: int, track_parents: bool,
-                          seed: str = "instability", fused_k: int = 1):
+                          seed: str = "instability",
+                          fused_k: int | None = None):
     """Anchor state via cache hit, incremental hop, or from-scratch rebuild.
 
     Returns ``(anchor_view, state, stats, event, delta_edges)``. The view's
@@ -776,7 +777,7 @@ def run_window_stream_batched(
     seed: str = "instability",
     stable_milli: int = 0,
     cost_model=None,
-    fused_k: int = 1,
+    fused_k: int | None = None,
 ) -> WindowStreamRun:
     """Streaming slide campaigns with incremental anchor maintenance.
 

@@ -19,11 +19,17 @@ stacked per-lane Δ blocks ``[S, E]``. A lane whose frontier empties, or
 which reaches ``max_iters``, stops changing state and stops counting
 iterations and work while the others run on — the reference's vmapped
 ``while_loop`` semantics. ``_fixpoint`` reads one host flag per chunk of
-``fused_k`` sweeps; inside a chunk nothing syncs.
+sweeps; inside a chunk nothing syncs. With ``fused_k=None`` (the default)
+the engine sizes the chunks itself from the sweeps the fixpoint has run
+(``_chunk_sweeps``); an integer ``fused_k`` fixes every chunk at that
+many sweeps.
 
 ``edge_work`` is float32 and accumulated exactly as the reference does:
-per-block counts summed in block order per sweep, sweeps summed within a
-chunk, chunks added to the running total, seed work added last.
+per-block counts summed in block order per sweep, then, with engine-sized
+chunks, each sweep added to the running total in turn (the reference's
+one-sweep loop); with a fixed ``fused_k``, sweeps summed within a chunk
+and chunks added to the running total (the reference's fused loop). Seed
+work is added last.
 """
 
 # The reference's graphlint rules G008/G010 sanction relax_sweep and
@@ -49,6 +55,11 @@ from repro_torch.runtime import trace
 
 INT_MAX = torch.iinfo(torch.int32).max
 NO_PARENT = -1
+# engine-sized chunks: the first chunk's sweeps, and the most a chunk
+# takes; the lengths double in between (of first 2 or 4 and most 8, 16
+# or 32, on an H100, 4 and 32 ran the benchmark's cells fastest or tied)
+_FIRST_CHUNK = 4
+_MOST_CHUNK = 32
 
 Blocks = tuple[EdgeBlock, ...]
 
@@ -151,23 +162,27 @@ def relax_sweep_fused(
     k: int = 1,
     allowed: torch.Tensor | int | None = None,
     track_parents: bool = True,
+    work: torch.Tensor | None = None,
 ):
     """Up to ``k`` frontier-masked sweeps as one fused chunk.
 
     A chunk runs sweeps until the frontier empties or ``min(k, allowed)``
     is reached (``allowed``: an int, or an int32 tensor with one entry per
     lane); nothing syncs with the host inside it. Runs the fused relax
-    kernel (``kernels/edge_relax_multi``) on the state's device. Returns
-    ``(values, parent, frontier, sweeps, work)``.
+    kernel (``kernels/edge_relax_multi``) on the state's device. Each
+    sweep's work is added in turn to ``work`` (f32, one entry per lane;
+    default zeros). Returns ``(values, parent, frontier, sweeps, work)``.
     """
     batched = values.dim() == 2
     if not batched:
         values, parent, frontier = (t.unsqueeze(0)
                                     for t in (values, parent, frontier))
+        if work is not None:
+            work = work.reshape(1)
     out = relax_multi(values, parent, frontier, [tuple(b) for b in blocks],
                       k if allowed is None else allowed,
                       op=KERNEL_OP_FOR[semiring.name], num_nodes=num_nodes,
-                      k=k, track_parents=track_parents)
+                      k=k, track_parents=track_parents, work=work)
     if batched:
         return out
     return tuple(t[0] for t in out)
@@ -183,21 +198,34 @@ def _live_flags(lives: "list[torch.Tensor]") -> "list[bool]":
     return torch.stack([live.any().to(dev) for live in lives]).tolist()
 
 
+def _chunk_sweeps(fused_k: int | None, launched: int, max_iters: int) -> int:
+    """The next chunk's sweeps after ``launched`` in this fixpoint:
+    ``fused_k``, or with ``None`` the engine's own length,
+    ``_FIRST_CHUNK + launched`` (so each chunk doubles the last: 4, 8,
+    16, 32, ...) up to ``_MOST_CHUNK``, and never past ``max_iters`` (a lane
+    still running has run every sweep launched so far). A fixpoint of s
+    sweeps then reads about log2(s) host flags, not s + 1."""
+    if fused_k is not None:
+        return fused_k
+    return min(_FIRST_CHUNK + launched, _MOST_CHUNK, max_iters - launched)
+
+
 def _fixpoint_shards(semiring: Semiring, num_nodes: int, max_iters: int,
                      shards, track_parents: bool = True,
-                     fused_k: int = 1) -> "list[FixpointResult]":
+                     fused_k: int | None = None) -> "list[FixpointResult]":
     """``_fixpoint`` over lane shards: ``shards`` is a sequence of
     ``(values, parent, frontier, blocks)``, each ``[S_d, N]`` with its
-    blocks on its own device. Each round enqueues one fused chunk on every
-    shard that still has a running lane, then reads all shards' flags at
-    once. A shard whose lanes have all stopped would run 0 sweeps and add
-    +0.0 work, so it is skipped; every lane's values, parents, iterations
-    and work equal an unsharded run's.
+    blocks on its own device. Each round enqueues one fused chunk
+    (``_chunk_sweeps``) on every shard that still has a running lane,
+    then reads all shards' flags at once. A shard whose lanes have all
+    stopped would run 0 sweeps and add +0.0 work, so it is skipped; every
+    lane's values, parents, iterations and work equal an unsharded run's.
 
     Spans ``engine.fixpoint`` (the call), ``engine.launch`` (a round's
     enqueue, from one flag read to the next) and ``engine.flag_read``;
-    while a recording is on, counters ``engine.rounds`` (flag reads) and,
-    on the device, ``engine.sweeps`` (the call's most lane iterations),
+    while a recording is on, host counters ``engine.rounds`` (flag reads)
+    and ``engine.launched_sweeps`` (each round's chunk length) and, on
+    the device, ``engine.sweeps`` (the call's most lane iterations),
     ``engine.active_edges`` (the chunks' work, summed over lanes) and
     ``engine.attempted_edges`` (each lane's real edges times its
     iterations)."""
@@ -214,21 +242,28 @@ def _fixpoint_shards(semiring: Semiring, num_nodes: int, max_iters: int,
             else None
         flags = _read_flags([s[2].any(1) & (s[3] < max_iters)
                              for s in states])
+        launched = 0
         while any(flags):
+            k = _chunk_sweeps(fused_k, launched, max_iters)
             with trace.span("engine.launch"):
                 for state, running in zip(states, flags):
                     if not running:
                         continue
                     values, parent, frontier, it, work, blocks = state
-                    cap = torch.clamp(max_iters - it, max=fused_k)
+                    cap = torch.clamp(max_iters - it, max=k)
+                    # engine-sized chunks add each sweep to the lanes'
+                    # totals in turn; a fixed fused_k sums a chunk first
+                    total = work if fused_k is None else None
                     values, parent, frontier, sweeps, dw = relax_sweep_fused(
                         semiring, num_nodes, values, parent, frontier,
-                        blocks, k=fused_k, allowed=cap,
-                        track_parents=track_parents)
+                        blocks, k=k, allowed=cap,
+                        track_parents=track_parents, work=total)
                     # lanes that did not run add 0 sweeps and +0.0 work
                     state[:5] = (values, parent, frontier, it + sweeps,
-                                 work + dw)
+                                 dw if total is not None else work + dw)
                 lives = [s[2].any(1) & (s[3] < max_iters) for s in states]
+            launched += k
+            trace.count("engine.launched_sweeps", k)
             flags = _read_flags(lives)
             del lives   # freed before the next round, as the peak expects
         if rec:
@@ -273,10 +308,11 @@ def _real_edges(blocks: Blocks, num_nodes: int):
 
 def _fixpoint(semiring: Semiring, num_nodes: int, max_iters: int,
               values, parent, frontier, blocks: Blocks,
-              track_parents: bool = True, fused_k: int = 1) -> FixpointResult:
+              track_parents: bool = True,
+              fused_k: int | None = None) -> FixpointResult:
     """Run fused chunks until every lane's frontier is empty or has
     reached ``max_iters``; one host read per chunk decides whether to go
-    on. Each chunk's cap ``min(fused_k, max_iters - it)`` never overruns
+    on. Each chunk's cap ``min(k, max_iters - it)`` never overruns
     ``max_iters``, so iterations and work equal the unfused loop's."""
     batched = values.dim() == 2
     if not batched:
@@ -300,14 +336,14 @@ def run_to_fixpoint(
     parent: torch.Tensor | None = None,
     frontier: torch.Tensor | None = None,
     track_parents: bool = True,
-    fused_k: int = 1,
+    fused_k: int | None = None,
 ) -> FixpointResult:
     """Run the query to fixpoint on ``view`` (from scratch or a warm state),
     on the view's device.
 
-    ``fused_k`` > 1 makes the fixpoint consume fused chunks of up to that
-    many sweeps per host check — a pure launch-shape knob, bit-identical
-    results at any value.
+    ``fused_k`` sets the sweeps per host check: ``None`` lets the engine
+    size its chunks, an integer fixes them — a pure launch-shape knob,
+    bit-identical results at any value.
     """
     n = view.num_nodes
     dev = view.device
@@ -337,7 +373,7 @@ def incremental_additions(
     max_iters: int = 10_000,
     track_parents: bool = True,
     seed: str = "instability",
-    fused_k: int = 1,
+    fused_k: int | None = None,
 ) -> FixpointResult:
     """Addition-only incremental update (the cheap KickStarter direction).
 
@@ -434,7 +470,7 @@ def _incremental_shards(semiring, num_nodes, max_iters, shards,
 def batched_incremental(semiring, num_nodes, max_iters,
                         values, parent, shared_blocks, delta_blocks,
                         track_parents=True, seed_blocks=None,
-                        lane_valid=None, seed="instability", fused_k=1):
+                        lane_valid=None, seed="instability", fused_k=None):
     """Incremental additions on every lane at once.
 
     values/parent: [S, N]; shared_blocks: tuple of EdgeBlock (broadcast);
@@ -464,7 +500,7 @@ def incremental_additions_batched(
     seed_blocks: Blocks | None = None,
     lane_valid: torch.Tensor | None = None,  # [S] bool; False = padding lane
     seed: str = "instability",
-    fused_k: int = 1,
+    fused_k: int | None = None,
 ) -> FixpointResult:
     """Batched addition-only updates, one lane per Δ (see batched_incremental).
 
@@ -486,7 +522,7 @@ def incremental_additions_sharded(
     max_iters: int = 10_000,
     track_parents: bool = True,
     seed: str = "instability",
-    fused_k: int = 1,
+    fused_k: int | None = None,
 ) -> FixpointResult:
     """:func:`incremental_additions_batched` with its lane axis split over
     devices: each :class:`LaneShard` relaxes its shared and Δ blocks and

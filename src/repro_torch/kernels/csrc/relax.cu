@@ -47,14 +47,20 @@
 //     lane that did not run in round 0; repack the frontier for the next
 //     round and reset the best words it read (not after the last round);
 //     raise the lane's run flag if it improved a vertex; add the round's
-//     per-block counts to the lane's f32 work in block order (the
-//     reference's f32 grouping).
+//     per-block counts, summed in block order, to the lane's f32 work (the
+//     reference's f32 grouping). The work starts from the caller's value,
+//     so a chunk can add each sweep to a running total, one at a time.
+//     Only the best words of lanes that run are read. A round after the
+//     first in which no lane runs returns at once: every lane's outputs
+//     already hold its last round.
 //   * The caller's tensors are only read: no clone, no in-place update.
 //     The k rounds of a chunk are issued back to back with no host sync;
 //     round r of a lane runs only if its frontier was not empty and
-//     r < allowed[lane] (the TPU's SMEM run flag). The main path calls it
-//     with k = 1, so a sparse sweep costs the passes over the lanes' state
-//     (prepare and finish) plus one read of every src.
+//     r < allowed[lane] (the TPU's SMEM run flag). The engine's fixpoint
+//     sizes its chunks from the sweeps it has run (graph/engine.py), so
+//     the prepare pass and the host's flag read come once a chunk; the
+//     rounds past a chunk's last live one cost their launches (scatter
+//     and finish both return at once) and no pass over the lanes' state.
 //
 // Weights lie in (0, 1], so no -0.0 or NaN reaches a key. The Viterbi
 // product flushes results below FLT_MIN to zero, as the JAX reference does
@@ -403,9 +409,14 @@ finish_kernel(int n, int lanes, int round, int k, const float* __restrict__ vin,
               const int* __restrict__ flags, int* next_flags, const int* __restrict__ allowed,
               int* sweeps, float* work, unsigned* counts, int nblocks) {
   extern __shared__ int s_lane[];  // bit 0: runs now; bit 1: may run next; bit 2: improved
-  for (int l = threadIdx.x; l < lanes; l += blockDim.x)
+  bool runs = false;
+  for (int l = threadIdx.x; l < lanes; l += blockDim.x) {
     s_lane[l] = ((flags[l] != 0 && round < allowed[l]) ? 1 : 0) | (round + 1 < allowed[l] ? 2 : 0);
-  __syncthreads();
+    runs |= (s_lane[l] & 1) != 0;
+  }
+  // a dead round: the outputs hold every lane's last round, its run flags
+  // stay 0, and so do those of the rounds after it
+  if (!__syncthreads_or(runs) && round > 0) return;
   const bool last = round + 1 == k;
   const float* vcur = round == 0 ? vin : vout;
   const int* pcur = round == 0 ? pin : pout;
@@ -432,7 +443,12 @@ finish_kernel(int n, int lanes, int round, int k, const float* __restrict__ vin,
         // vertex c's words of lanes 32g + j0 ... at at0 + c * lanes
         Best<TRACK>* at0 = best + v0 * lanes + 32 * g + j0;
         Best<TRACK> words[kV][kW];
-        if (bvec) {
+        // the words of lanes that do not run stay at the identity: unread
+        bool quad_runs = false;
+#pragma unroll
+        for (int cc = 0; cc < kW; ++cc)
+          if (j0 + cc < end && (s_lane[32 * g + j0 + cc] & 1)) quad_runs = true;
+        if (bvec && quad_runs) {
 #pragma unroll
           for (int c = 0; c < kV; ++c)
             if (c < m) load16<TRACK>(at0 + c * lanes, words[c]);
@@ -612,8 +628,8 @@ int relax_multi_max_lanes() { return kMaxLanes; }
 // when not tracked) and writes values_out/parent_out/frontier_out for
 // every lane; the inputs are never written. Block b has lens[b] edges per
 // lane and lane stride strides[b] (0 = shared). flags: (k + 1) * (lanes +
-// 1) ints, counts: lanes * nblocks, sweeps: lanes, work: lanes floats, all
-// zeroed by the caller; best: lanes * n words of 8 bytes (track) or 4;
+// 1) ints, counts: lanes * nblocks, sweeps: lanes, all zeroed by the
+// caller; work: lanes floats, each lane's starting total; best: lanes * n words of 8 bytes (track) or 4;
 // bitmap: ceil(n / 32) words; fbits: ceil(lanes / 32) * n words, or null
 // with one lane. Returns cudaGetLastError().
 int relax_multi_run(int op, int track, int lanes, int n, int k, const float* values,

@@ -35,7 +35,7 @@ from repro_torch.kernels.edge_relax.ref import ops_for
 from repro_torch.kernels.edge_relax_multi.ref import relax_multi_ref
 
 
-def _check_inputs(values, parent, frontier, blocks, num_nodes, k):
+def _check_inputs(values, parent, frontier, blocks, num_nodes, k, work):
     if k < 1:
         raise ValueError(f"fused sweep count k={k} must be >= 1")
     if values.dim() != 2 or values.shape[1] != num_nodes:
@@ -50,6 +50,11 @@ def _check_inputs(values, parent, frontier, blocks, num_nodes, k):
     if not blocks:
         raise ValueError("relax_multi needs at least one edge block")
     lanes = values.shape[0]
+    if work is not None and (work.shape != (lanes,)
+                             or work.dtype != torch.float32
+                             or work.device != values.device):
+        raise ValueError(f"work must be float32 [{lanes}] on the state's "
+                         f"device, got {work.dtype} {tuple(work.shape)}")
     for src, dst, w in blocks:
         if not (src.shape == dst.shape == w.shape) or src.dim() not in (1, 2):
             raise ValueError("each block's src/dst/w must share a [E] or "
@@ -65,7 +70,8 @@ def _check_inputs(values, parent, frontier, blocks, num_nodes, k):
 
 
 def relax_multi(values, parent, frontier, blocks, allowed=None, *, op: str,
-                num_nodes: int, k: int, track_parents: bool = True):
+                num_nodes: int, k: int, track_parents: bool = True,
+                work=None):
     """Up to ``min(k, allowed[lane])`` frontier-masked sweeps per lane.
 
     values/parent/frontier ``[S, N]`` f32/int32/bool; ``blocks`` a sequence
@@ -74,18 +80,21 @@ def relax_multi(values, parent, frontier, blocks, allowed=None, *, op: str,
     int32 ``[S]`` tensor capping each lane's sweeps (default ``k``). Each
     sweep takes the best candidate per dst and the smallest winning src,
     applies the meet, sets the parent where improved and frontier =
-    improved. Returns new ``(values, parent, frontier, sweeps [S] int32,
-    work [S] f32)``. The inputs are never modified: on the card the kernel
+    improved. Each sweep's work (its blocks' active edges, summed in
+    block order in f32) is added to the lane's total, one sweep at a
+    time, from ``work`` (f32 ``[S]``, default zeros). Returns new
+    ``(values, parent, frontier, sweeps [S] int32, work [S] f32)``. The
+    inputs are never modified: on the card the kernel
     reads them and writes fresh outputs. Without parent tracking the
     returned ``parent`` equals the caller's; on the card it is the
     caller's tensor itself, not a copy.
     """
     ops_for(op)
-    _check_inputs(values, parent, frontier, blocks, num_nodes, k)
+    _check_inputs(values, parent, frontier, blocks, num_nodes, k, work)
     if values.device.type == "cpu":
         return relax_multi_ref(values, parent, frontier, blocks, allowed,
                                op=op, num_nodes=num_nodes, k=k,
-                               track_parents=track_parents)
+                               track_parents=track_parents, work=work)
     if values.device.type == "meta":
         return _meta.relax_multi(values, parent, frontier, blocks,
                                  track_parents)
@@ -108,13 +117,15 @@ def relax_multi(values, parent, frontier, blocks, allowed=None, *, op: str,
     nb = len(blocks)
     # one zeroed int32 scratch: run flags [k+1, S+1] (the last entry of a
     # row: some frontier bit is set), sweeps [S], counts [S, nb], work [S]
-    # (f32 zeros); and one unset one: the best words [S * N] (int64 when
-    # tracked), the vertex bitmap [ceil(N / 32)] and the lane bits
-    # [ceil(S / 32) * N] (with more than one lane)
+    # (f32 zeros, or the caller's totals); and one unset one: the best
+    # words [S * N] (int64 when tracked), the vertex bitmap [ceil(N / 32)]
+    # and the lane bits [ceil(S / 32) * N] (with more than one lane)
     rows = (k + 1) * (lanes + 1)
     counts_at = rows + lanes
     work_at = counts_at + lanes * nb
     zeroed = torch.zeros(work_at + lanes, dtype=torch.int32, device=dev)
+    if work is not None:
+        zeroed[work_at:].view(torch.float32).copy_(work)
     bitmap_at = lanes * num_nodes * (2 if track_parents else 1)
     fbits_at = (bitmap_at + (num_nodes + 31) // 32 + 3) // 4 * 4  # 16 B
     fbits_len = (lanes + 31) // 32 * num_nodes if lanes > 1 else 0

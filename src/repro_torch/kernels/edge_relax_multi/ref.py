@@ -5,7 +5,8 @@ every lane independently: up to ``min(k, allowed[lane])`` frontier-masked
 sweeps with early exit on an empty frontier. A lane that stops keeps its
 state and counts no more sweeps or work while the others run on. Each
 sweep's work is the f32 sum, in block order, of each block's count of
-active non-padding edges — the reference engine's grouping.
+active non-padding edges — the reference engine's grouping — and is
+added to the lane's total one sweep at a time.
 """
 
 from __future__ import annotations
@@ -79,13 +80,14 @@ def _sweep(combine, is_min, ident, num_nodes, nblocks, values, parent,
 
 def relax_multi_ref(values, parent, frontier, blocks, allowed=None, *,
                     op: str, num_nodes: int, k: int,
-                    track_parents: bool = True):
+                    track_parents: bool = True, work=None):
     """``min(k, allowed)`` sweeps per lane with early exit.
 
     values/parent/frontier ``[S, N]`` (f32/int32/bool); ``blocks`` as in
     :func:`lane_edges`; ``allowed`` an int or an int ``[S]`` tensor
-    (default ``k``). Returns new ``(values, parent, frontier, sweeps [S]
-    int32, work [S] f32)``; the inputs are not modified.
+    (default ``k``); ``work`` the lanes' f32 ``[S]`` totals each sweep
+    adds to (default zeros). Returns new ``(values, parent, frontier,
+    sweeps [S] int32, work [S] f32)``; the inputs are not modified.
     """
     combine, reduce_kind, ident = ops_for(op)
     is_min = reduce_kind == "min"
@@ -97,7 +99,8 @@ def relax_multi_ref(values, parent, frontier, blocks, allowed=None, *,
                                                         device=dev))
     src, dst, w, block_id = lane_edges(blocks, lanes)
     sweeps = torch.zeros(lanes, dtype=torch.int32, device=dev)
-    work = torch.zeros(lanes, dtype=torch.float32, device=dev)
+    work = (torch.zeros(lanes, dtype=torch.float32, device=dev)
+            if work is None else work.clone())
     for s in range(k):
         run = (s < cap) & frontier.any(1)
         if not bool(run.any()):

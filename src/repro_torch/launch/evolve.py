@@ -26,7 +26,8 @@ through the streaming-campaign scheduler (campaigns of
 ``--campaign-width C`` windows, or ``auto`` for the Δ-volume DP's
 partition, whose modeled volumes are printed) and reports it against the
 cold per-campaign baseline. ``--fused-k K`` runs every window and stream
-launch with up to K sweeps per fused relax call (same results at any K).
+launch with up to K sweeps per fused relax call; without it the engine
+sizes its chunks (same results either way).
 With ``--verify`` every window equals the from-scratch fixpoint of its
 common graph (each checked by one unmasked sweep), the batched slide
 equals the sequential one bit for bit, and the stream equals the cold
@@ -201,10 +202,11 @@ def main(argv=None) -> dict:
                    help="windows per streaming campaign for --stream "
                         "(default 4), or 'auto' to let the Δ-volume DP "
                         "(core/window.py optimal_campaigns) choose")
-    p.add_argument("--fused-k", type=int, default=1, metavar="K",
+    p.add_argument("--fused-k", type=int, default=None, metavar="K",
                    help="fused-chunk size for the sliding-window/stream "
                         "launches: up to K frontier-masked sweeps per relax "
-                        "call (same results at any K, default 1)")
+                        "call (same results at any K; default: the engine "
+                        "sizes its chunks)")
     p.add_argument("--ingest", action="store_true",
                    help="build the store by replaying the sequence as an "
                         "edge-event firehose (core/ingest.py): snapshots "
@@ -222,7 +224,7 @@ def main(argv=None) -> dict:
         p.error("--stream requires --window W")
     if args.calibrate and not args.stream:
         p.error("--calibrate requires --stream")
-    if args.fused_k < 1:
+    if args.fused_k is not None and args.fused_k < 1:
         p.error(f"--fused-k must be >= 1, got {args.fused_k}")
     device = torch.device(args.device)
     if device.type == "cuda":

@@ -229,6 +229,88 @@ def test_cuda_relax_multi_design(cuda_device, case, name, track):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("track", [True, False])
+@pytest.mark.parametrize("name", SEMIRINGS)
+def test_cuda_relax_multi_past_convergence(cuda_device, name, track):
+    """A chunk run well past its lanes' last live round (8 lanes that stop
+    at different sweeps, one allowed nothing, one capped): the dead rounds
+    leave values, parents, frontier, sweeps and work exactly as the last
+    live round left them, bit for bit against a chunk that ends there and
+    the plain version; the work starts from the lanes' running totals
+    (2^24 - 3 on one lane) and adds each sweep in turn."""
+    n, lanes = 3000, 8
+    shared = _on(cuda_device, *edges(n, 9000, 41, pad=16))
+    stacked = _on(cuda_device, *_stacked(lanes, n, 300, 42, pad=8,
+                                         padding_lanes=(5,)))
+    st = _on(cuda_device, *state(name, n, 43, lanes))
+    allowed = torch.full((lanes,), 64, dtype=torch.int32,
+                         device=cuda_device)
+    allowed[1], allowed[-1] = 0, 2
+    total = torch.arange(lanes, dtype=torch.float32, device=cuda_device)
+    total[3] = 2.0 ** 24 - 3
+    kw = dict(op=KERNEL_OP_FOR[name], num_nodes=n, track_parents=track,
+              work=total)
+    blocks = [shared, stacked]
+    got = relax_multi(*st, blocks, allowed, k=64, **kw)
+    live = int(got[3].max())
+    assert 2 < live < 40 and len(set(got[3].tolist())) > 2
+    ends = relax_multi(*st, blocks, allowed, k=live, **kw)
+    want = relax_multi_ref(*st, blocks, allowed, k=64, **kw)
+    for part, g, e, r in zip(("values", "parent", "frontier", "sweeps",
+                              "work"), got, ends, want):
+        if g.dtype == torch.float32:
+            g, e, r = (t.view(torch.int32) for t in (g, e, r))
+        assert torch.equal(g, e), part
+        assert torch.equal(g, r), part
+    stopped = [0, 2, 3, 4, 5, 6]     # not allowed 0 (lane 1) nor capped
+    assert not got[2][stopped].any()
+    assert int(got[3][1]) == 0 and float(got[4][1]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", SEMIRINGS)
+def test_cuda_engine_chunks_equal_one_sweep_chunks(cuda_device, name):
+    """The engine's own chunks (``fused_k=None``) on the card equal its
+    one-sweep loop (``fused_k=1``) on the card and on the CPU bit for
+    bit, edge_work included: from scratch, with max_iters caps that land
+    inside a chunk, and batched over 3 Δ lanes bucketed to 4 that stop
+    at different sweeps."""
+    from repro_torch.graph import engine
+    from repro_torch.graph.edgeset import EdgeBlock, EdgeView
+    n, lanes = 4000, 4
+    sr = ALL_SEMIRINGS[name]
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        base = EdgeBlock(*_on(dev, *edges(n, 20_000, 51, pad=32)))
+        delta = EdgeBlock(*_on(dev, *_stacked(lanes, n, 400, 52, pad=8,
+                                              padding_lanes=(3,))))
+        view = EdgeView((base,), n)
+        for fk in (None, 1):
+            out = []
+            for cap in (10_000, 3, 9):
+                out.append(engine.run_to_fixpoint(view, sr, 0,
+                                                  max_iters=cap, fused_k=fk))
+            start = out[0]
+            values = start.values.expand(lanes, n).contiguous()
+            parent = start.parent.expand(lanes, n).contiguous()
+            valid = torch.arange(lanes, device=values.device) < 3
+            for cap in (10_000, 6):
+                out.append(engine.incremental_additions_batched(
+                    n, sr, values, parent, (base,), (delta,),
+                    max_iters=cap, lane_valid=valid, fused_k=fk))
+            runs[(str(dev), fk)] = out
+    want = runs[("cpu", 1)]
+    assert len(set(want[3].iterations[:3].tolist())) > 1
+    for key, got in runs.items():
+        for g, w in zip(got, want):
+            for part in ("values", "parent", "iterations", "edge_work"):
+                a, b = getattr(g, part).cpu(), getattr(w, part)
+                if a.dtype == torch.float32:
+                    a, b = a.view(torch.int32), b.view(torch.int32)
+                assert torch.equal(a, b), (key, part)
+
+
+@pytest.mark.cuda
 def test_cuda_relax_multi_lane_limit(cuda_device):
     """The most lanes the kernel takes run bit for bit; one more raises
     ValueError naming the limit."""
@@ -592,13 +674,14 @@ def test_cuda_dien_train_driver_decreases_loss(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fused_k", [1, 4])
+@pytest.mark.parametrize("fused_k", [1, 4, None])
 @pytest.mark.parametrize("name", SEMIRINGS)
 def test_cuda_window_slide_and_stream_match_cpu(cuda_device, name, fused_k):
     """The batched slide (5 windows on 8 lanes, 3 masked) and a stream (2
     campaigns of 3 windows on 4 lanes, one masked; 1 rebuild + 1 anchor
     hop) on the card equal the CPU's runs bit for bit, parents tracked, at
-    k = 1 and 4; only the card launches relax_multi."""
+    k = 1 and 4 and in the engine's own chunks; only the card launches
+    relax_multi."""
     seq = make_evolving_sequence(3000, 24_000, 8, 500, seed=3)
     sr = ALL_SEMIRINGS[name]
     runs = []

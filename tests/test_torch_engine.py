@@ -1,7 +1,9 @@
 """The port's fixpoint engine and stability layer held against the JAX
 reference, bit for bit: values, parents, iterations, edge_work and
 unstable counts for all five semirings, from scratch, incremental, seeded
-both ways, batched with padded lanes, and across fused_k."""
+both ways, batched with padded lanes, and across fused_k: the engine's
+own chunks (the default, ``fused_k=None``) equal the one-sweep loop
+(``fused_k=1``) and a fixed ``fused_k`` the reference's fused loop."""
 
 import pytest
 
@@ -15,6 +17,7 @@ from repro.graph import stability as jstab  # noqa: E402
 from repro.graph.edgeset import EdgeView as JView  # noqa: E402
 from repro.graph.edgeset import make_block as j_make_block  # noqa: E402
 from repro.graph.edgeset import stack_delta_blocks as j_stack  # noqa: E402
+from repro.graph.edgeset import EdgeBlock as JBlock  # noqa: E402
 from repro.graph.semiring import ALL_SEMIRINGS as JSEMI  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.graph import engine as teng  # noqa: E402
@@ -22,6 +25,8 @@ from repro_torch.graph import stability as tstab  # noqa: E402
 from repro_torch.graph.edgeset import EdgeView as TView  # noqa: E402
 from repro_torch.graph.edgeset import lane_bucket  # noqa: E402
 from repro_torch.graph.semiring import ALL_SEMIRINGS as TSEMI  # noqa: E402
+from repro_torch.kernels.edge_relax.ref import KERNEL_OP_FOR  # noqa: E402
+from repro_torch.kernels.edge_relax_multi import relax_multi  # noqa: E402
 
 SEMIRINGS = sorted(JSEMI)
 N = 160
@@ -94,16 +99,25 @@ def test_run_to_fixpoint_matches_reference(graph, name):
 @pytest.mark.parametrize("name", SEMIRINGS)
 def test_run_to_fixpoint_invariant_in_fused_k(graph, name):
     """fused_k is a pure launch-shape knob: bit-identical to the reference
-    at every chunk size, including a chunk cap that meets max_iters."""
+    at every chunk size, including a chunk cap that meets max_iters; the
+    engine's own chunks (None: 4, 8, 16, ... sweeps) equal the one-sweep
+    loop, with max_iters caps that land inside a chunk."""
     base, _ = graph
     jv, tv = JView(tuple(base), N), TView(tuple(_blk(b) for b in base), N)
     ref = jeng.run_to_fixpoint(jv, JSEMI[name], 0)
-    for fk in (2, 3, 7):
+    for fk in (None, 2, 3, 7):
         t = teng.run_to_fixpoint(tv, TSEMI[name], 0, fused_k=fk)
         _assert_result(t, ref, f"{name} fused_k={fk}")
-        j = jeng.run_to_fixpoint(jv, JSEMI[name], 0, max_iters=5, fused_k=fk)
-        t = teng.run_to_fixpoint(tv, TSEMI[name], 0, max_iters=5, fused_k=fk)
-        _assert_result(t, j, f"{name} fused_k={fk} max_iters=5")
+        for cap in (1, 5, 11):
+            j = jeng.run_to_fixpoint(jv, JSEMI[name], 0, max_iters=cap,
+                                     fused_k=fk or 1)
+            t = teng.run_to_fixpoint(tv, TSEMI[name], 0, max_iters=cap,
+                                     fused_k=fk)
+            _assert_result(t, j, f"{name} fused_k={fk} max_iters={cap}")
+            if fk is None:
+                one = teng.run_to_fixpoint(tv, TSEMI[name], 0,
+                                           max_iters=cap, fused_k=1)
+                _assert_result(t, one, f"{name} max_iters={cap} vs k=1")
 
 
 @pytest.mark.parametrize("name", SEMIRINGS)
@@ -172,9 +186,10 @@ def test_incremental_additions_matches_reference(graph, anchors, name):
     jv = JView(tuple(base) + (jd,), N)
     tv = TView(tuple(_blk(b) for b in base) + (_blk(jd),), N)
     for seed in ("instability", "delta"):
-        for fk in (1, 3):
+        for fk in (None, 1, 3):
             j = jeng.incremental_additions(jv, jd, JSEMI[name], a.values,
-                                           a.parent, seed=seed, fused_k=fk)
+                                           a.parent, seed=seed,
+                                           fused_k=fk or 1)
             t = teng.incremental_additions(tv, _blk(jd), TSEMI[name],
                                            state.values, state.parent,
                                            seed=seed, fused_k=fk)
@@ -184,9 +199,10 @@ def test_incremental_additions_matches_reference(graph, anchors, name):
 
 @pytest.mark.parametrize("name", SEMIRINGS)
 def test_incremental_additions_batched_with_padded_lanes(graph, anchors, name):
-    """Three Δ lanes bucketed to four (one masked lane): every lane's
-    values, parents, iterations, edge_work and unstable equal the
-    reference's batched launch."""
+    """Three Δ lanes bucketed to four (one masked lane), stopping at
+    different sweeps: every lane's values, parents, iterations, edge_work
+    and unstable equal the reference's batched launch, the engine's own
+    chunks (None) its one-sweep loop, also under a max_iters cap."""
     base, deltas = graph
     a = anchors[name]
     bucket = lane_bucket(len(deltas))
@@ -198,17 +214,70 @@ def test_incremental_additions_batched_with_padded_lanes(graph, anchors, name):
         *interop.state_from_arrays(np.asarray(a.values)[None],
                                    np.asarray(a.parent)[None], "cpu"),
         [0] * bucket)
-    for track, fk in ((True, 1), (False, 2)):
+    stops = set()
+    for track, fk, cap in ((True, 1, 10_000), (False, 2, 10_000),
+                           (True, None, 10_000), (False, None, 10_000),
+                           (True, None, 6)):
         j = jeng.incremental_additions_batched(
             N, JSEMI[name], jvals, jpar, tuple(base), (jstack,),
-            track_parents=track, lane_valid=jnp.asarray(valid), fused_k=fk)
+            max_iters=cap, track_parents=track,
+            lane_valid=jnp.asarray(valid), fused_k=fk or 1)
         t = teng.incremental_additions_batched(
             N, TSEMI[name], tvals, tpar, tuple(_blk(b) for b in base),
-            (_blk(jstack),), track_parents=track,
+            (_blk(jstack),), max_iters=cap, track_parents=track,
             lane_valid=torch.from_numpy(valid), fused_k=fk)
-        _assert_result(t, j, f"{name} track={track} fused_k={fk}",
-                       unstable=True)
-    assert int(t.iterations[-1]) == 0 and float(t.edge_work[-1]) == 0.0
+        _assert_result(t, j, f"{name} track={track} fused_k={fk} "
+                       f"max_iters={cap}", unstable=True)
+        assert int(t.iterations[-1]) == 0 and float(t.edge_work[-1]) == 0.0
+        if cap == 10_000:
+            stops.add(tuple(t.iterations[:len(deltas)].tolist()))
+    assert len(stops) == 1 and len(set(stops.pop())) > 1
+
+
+@pytest.mark.parametrize("name", SEMIRINGS)
+def test_relax_multi_adds_each_sweep_to_the_running_total(name):
+    """A chunk's work starts from the lane's running total and adds each
+    sweep in turn, as the one-sweep loop does (``total + s_r``), not the
+    chunk's sum: from 2^24 - 3, a chain's sweeps of one active edge each
+    stop at 2^24 one at a time, where a chunk summed first would reach
+    2^24 + 6. The same holds against the reference's one-sweep loop."""
+    n, k = 12, 9
+    src = np.arange(n - 1, dtype=np.int32)
+    dst = np.arange(1, n, dtype=np.int32)
+    w = np.full(n - 1, 0.5, np.float32)
+    sr_t, sr_j = TSEMI[name], JSEMI[name]
+    start = np.float32(2 ** 24 - 3)
+    block = tuple(torch.from_numpy(a) for a in (src, dst, w))
+    values = teng.init_values(n, sr_t, 0, device="cpu")[None]
+    parent = torch.full((1, n), -1, dtype=torch.int32)
+    frontier = torch.zeros((1, n), dtype=torch.bool)
+    frontier[0, 0] = True
+    kw = dict(op=KERNEL_OP_FOR[name], num_nodes=n, track_parents=True)
+    got = relax_multi(values, parent, frontier, [block], k=k,
+                      work=torch.tensor([start]), **kw)
+    one = (values, parent, frontier)
+    total, sweeps = torch.tensor([start]), 0
+    for _ in range(k):
+        *one, s, dw = relax_multi(*one, [block], k=1, **kw)
+        total, sweeps = total + dw, sweeps + int(s)
+    summed = relax_multi(values, parent, frontier, [block], k=k, **kw)[4]
+    assert int(got[3]) == sweeps == k
+    for g, r in zip(got[:3], one):
+        assert torch.equal(g, r)
+    assert got[4].view(torch.int32).item() == total.view(torch.int32).item()
+    assert float(got[4]) == 2.0 ** 24
+    assert float(start + summed) == 2.0 ** 24 + 6
+    # the reference engine's one-sweep loop, from the same total
+    jb = JBlock(*(jnp.asarray(a) for a in (src, dst, w)))
+    jv = jeng.init_values(n, sr_j, 0)
+    jp = jnp.full((n,), -1, jnp.int32)
+    jf = jnp.zeros((n,), bool).at[0].set(True)
+    jtotal = jnp.float32(start)
+    for _ in range(k):
+        jv, jp, jf, dw = jeng.relax_sweep(sr_j, n, jv, jp, jf, (jb,))
+        jtotal = jtotal + dw
+    assert float(got[4][0]) == float(jtotal)
+    np.testing.assert_array_equal(_np(got[0][0]), np.asarray(jv))
 
 
 def test_stable_fraction_milli_matches_reference():

@@ -1,12 +1,14 @@
-"""``chip_smoke.main_path_sweeps`` replays the main path's relax calls one
-at a time: on the CPU (plain versions) its final states, iterations and
-work equal the engine's own fixpoints bit for bit — the dh hop
+"""``chip_smoke.main_path_sweeps`` replays the main path's relax calls in
+the engine's own chunks: on the CPU (plain versions) its final states,
+iterations, work and number of calls equal the engine's own fixpoints bit
+for bit — the dh hop
 (``incremental_additions``), the batched hops
 (``incremental_additions_batched``) and KickStarter's from-scratch run
 (``run_to_fixpoint``, parents tracked), and on the window path the
 batched slide's launch (masked lanes included) and the stream's anchor
-hop — for all five semirings. The card holds each replayed call against
-the plain version in ``chip_smoke.py``'s phase 2."""
+hop — for all five semirings; and each replayed call equals the same
+call made one round at a time (``chip_smoke.round_by_round``). The card
+holds each replayed call against both in ``chip_smoke.py``'s phase 2."""
 
 import pathlib
 import sys
@@ -25,11 +27,15 @@ from repro_torch.core.window import _stream_qkey  # noqa: E402
 from repro_torch.graph import make_evolving_sequence  # noqa: E402
 from repro_torch.graph.edgeset import lane_bucket  # noqa: E402
 from repro_torch.graph.engine import (  # noqa: E402
+    _chunk_sweeps,
     incremental_additions,
     incremental_additions_batched,
     run_to_fixpoint,
 )
 from repro_torch.graph.semiring import ALL_SEMIRINGS  # noqa: E402
+from repro_torch.kernels.edge_relax_multi.ref import (  # noqa: E402
+    relax_multi_ref,
+)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 SNAPSHOTS = 5
@@ -56,6 +62,15 @@ def _same(got, want, msg):
     if got.dtype == torch.float32:
         got, want = got.view(torch.int32), want.view(torch.int32)
     assert torch.equal(got, want), msg
+
+
+def _chunks(sweeps):
+    """Calls the engine's schedule makes for a fixpoint of ``sweeps``."""
+    launched = calls = 0
+    while launched < sweeps:
+        launched += _chunk_sweeps(None, launched, 10_000)
+        calls += 1
+    return calls
 
 
 def _check(replay, res, msg):
@@ -89,8 +104,34 @@ def test_main_path_replay_equals_engine(smoke, store, name):
     ks = run_to_fixpoint(store.snapshot_view(0), sr, 0)
     _check({key: (v[0] if isinstance(v, torch.Tensor) else v)
             for key, v in replay["ks"].items()}, ks, f"{name} ks")
-    assert replay["ks"]["calls"] == int(ks.iterations)
-    assert replay["dh"]["calls"] == int(dh.iterations)
+    assert replay["ks"]["calls"] == _chunks(int(ks.iterations))
+    assert replay["dh"]["calls"] == 1 + _chunks(int(dh.iterations) - 1)
+
+
+@pytest.mark.parametrize("name", sorted(ALL_SEMIRINGS))
+def test_replayed_chunks_equal_one_round_calls(smoke, store, name):
+    """Every replayed call, made again one round at a time, gives the
+    same outputs bit for bit; a round is counted where some lane ran, and
+    the replay's chunks reach past their fixpoints (dead rounds)."""
+    sr = ALL_SEMIRINGS[name]
+    n = store.num_nodes
+    seen = []
+
+    def call(case, args, kw):
+        got = relax_multi_ref(*args, **kw)
+        rounds, (nbytes, floor, pairs, ran) = smoke.round_by_round(args, kw,
+                                                                   n)
+        for part, g, o in zip(("values", "parent", "frontier", "sweeps",
+                               "work"), got, rounds):
+            _same(g, o, f"{name} {case} k={kw['k']} {part}")
+        assert ran == int(got[3].max())
+        assert (nbytes > 0) == (ran > 0) and floor >= nbytes and pairs >= 0
+        seen.append((kw["k"], ran))
+        return got
+
+    smoke.main_path_sweeps(store, sr, call)
+    assert any(k > ran for k, ran in seen)
+    assert any(k > 1 and ran > 1 for k, ran in seen)
 
 
 @pytest.mark.parametrize("name", sorted(ALL_SEMIRINGS))

@@ -3,7 +3,7 @@ at toy size: off they record nothing and open no profiler range; inside
 ``trace.recording()`` or under ``torch.profiler`` the engine's, the
 executors' and the store's spans appear, nested; the engine's counters
 equal what its results report; every result is bit-identical with
-recording on and off; the benchmark's four readers of ``totals()``.
+recording on and off; the benchmark's readers of ``totals()``.
 """
 
 import contextlib
@@ -172,11 +172,13 @@ def test_program_spans_appear_nested(mode, ranges):
                        and e.time_range.end <= o.end for o in outer)
 
 
-@pytest.mark.parametrize("fused_k", [1, 4])
+@pytest.mark.parametrize("fused_k", [1, 4, None])
 def test_rounds_are_flag_reads(fused_k, monkeypatch):
     """``engine.rounds`` counts ``_live_flags`` calls; at ``fused_k=1`` a
-    fixpoint reads sweeps + 1 flags, fused chunks read fewer, and
-    ``engine.sweeps`` is its iterations."""
+    fixpoint reads sweeps + 1 flags, fused chunks read fewer, the
+    engine's own chunks (None: 4, 8, 16, ...) about log2 of the sweeps;
+    ``engine.sweeps`` is its iterations, and ``engine.launched_sweeps``,
+    the chunks' lengths, at least that."""
     calls = []
     real = engine._live_flags
 
@@ -194,10 +196,21 @@ def test_rounds_are_flag_reads(fused_k, monkeypatch):
     assert counts["engine.rounds"] == len(calls)
     assert counts["engine.sweeps"] == sweeps
     assert counts["engine.active_edges"] == int(res.edge_work)
+    launched = counts["engine.launched_sweeps"]
+    assert launched >= sweeps
     if fused_k == 1:
         assert counts["engine.rounds"] == sweeps + 1
+        assert launched == sweeps
+    elif fused_k is None:
+        chunks, want = 0, 0
+        while want < sweeps:
+            want += engine._chunk_sweeps(None, want, 10_000)
+            chunks += 1
+        assert counts["engine.rounds"] == chunks + 1 <= sweeps // 2 + 1
+        assert launched == want
     else:
         assert counts["engine.rounds"] <= sweeps // fused_k + 2
+        assert launched == fused_k * (counts["engine.rounds"] - 1)
 
 
 def test_active_edges_are_edge_work_less_the_seed():
@@ -370,11 +383,13 @@ TOTALS = dict(
            "engine.flag_read": dict(count=42, total_s=0.0085,
                                     self_s=0.0085)},
     counts={"engine.rounds": 42, "engine.sweeps": 40,
+            "engine.launched_sweeps": 50,
             "engine.active_edges": 1500, "engine.attempted_edges": 6000})
 ZERO = dict(
     spans={"engine.launch": dict(count=0, total_s=0.0, self_s=0.0),
            "engine.flag_read": dict(count=0, total_s=0.0, self_s=0.0)},
     counts={"engine.rounds": 0, "engine.sweeps": 0,
+            "engine.launched_sweeps": 0,
             "engine.active_edges": 0, "engine.attempted_edges": 0})
 
 
@@ -391,9 +406,10 @@ def _metric(name):
     ("round_launch_us", 50.0),
     ("round_host_us", 250.0),
     ("active_edge_pct", 25.0),
+    ("dead_sweep_pct", 20.0),
 ])
 def test_metric_reads_the_program_totals(name, want, monkeypatch):
-    """Each of the benchmark's four readers of ``trace.totals()`` reads
+    """Each of the benchmark's readers of ``trace.totals()`` reads
     its value from a hand-made total, and None where a total is zero,
     where nothing was recorded or where the program has no trace
     module."""
