@@ -3,9 +3,11 @@
 Counterpart of ``repro.configs.commongraph``: the batched Direct-Hop step
 of CommonGraph — one lane per snapshot, each lane the common graph's
 fixpoint carried to its snapshot by the addition-only hop over its Δ
-edges — at the two protocol scales of ``COMMONGRAPH_SHAPES``. The lane
-axis is padded to ``lane_bucket(snapshots, extent)`` with masked lanes,
-so the cell shards for any snapshot count on a mesh of any extent.
+edges — at the two protocol scales of ``COMMONGRAPH_SHAPES``, or at
+any sizes (:func:`make_window_cell`). The cell's lane axis is padded to
+``lane_bucket(snapshots, extent)`` with masked lanes, so the cell shards
+for any snapshot count on a mesh of any extent; a placed window's to
+:func:`window_lanes`, as many a device.
 
 The reference's cell is abstract (its dry run lowers it on a production
 mesh); the port's cell has meta-device arguments of the same shapes, and
@@ -19,8 +21,16 @@ blocks' edges over ``model``: each chip reduces its part of the edges
 and a semiring all-reduce combines the partial results. The port has no
 counterpart of the ``model`` split: each lane shard holds the whole
 common graph on its device (768 MiB per card at ``window_64x``) and
-relaxes every edge itself. Only the lane axis is split
-(``core/trigrid.py`` ``_shard_snapshot_axis``).
+relaxes every edge itself. Only the lane axis is split, in one of two
+ways. The cell's ``fn`` takes the whole ``[sb, n]`` state on the mesh's
+first device, splits it over the devices each step
+(``core/trigrid.py`` ``_shard_snapshot_axis``) and gathers the results
+back there, as the executors do. A large window is placed instead
+(:func:`place_window`): each device's lanes, Δ rows and copy of the
+common graph are put on it once and stay, and a step
+(:meth:`PlacedWindow.step`) broadcasts the common graph's ``[n]``
+fixpoint row to every device and leaves each lane's result on its
+device, so no device ever holds the whole lane state.
 """
 
 from __future__ import annotations
@@ -43,7 +53,9 @@ from repro_torch.graph.edgeset import (
     unique_keys,
 )
 from repro_torch.graph.engine import (
+    ShardedResult,
     batched_incremental,
+    incremental_additions_resident,
     incremental_additions_sharded,
     run_to_fixpoint,
 )
@@ -65,18 +77,29 @@ SEMIRING, SOURCE = SSSP, 0
 
 def make_commongraph_cell(shape_id: str, mesh=None,
                           max_iters: int = 64) -> Cell:
-    """The ``commongraph/<shape_id>`` cell on ``mesh``.
+    """The ``commongraph/<shape_id>`` cell on ``mesh``: the
+    :func:`make_window_cell` of ``COMMONGRAPH_SHAPES[shape_id]``."""
+    return make_window_cell(COMMONGRAPH_SHAPES[shape_id], mesh, max_iters,
+                            name=f"commongraph/{shape_id}")
+
+
+def make_window_cell(sizes: dict, mesh=None, max_iters: int = 64, *,
+                     name: str) -> Cell:
+    """The CommonGraph cell named ``name`` of a window of ``sizes``
+    (``n_snapshots``, ``n_nodes``, ``cg_edges``, ``delta_edges``) on
+    ``mesh``.
 
     ``mesh=None`` is the unmeshed launch (extent 1); a ``SnapshotMesh``
     or any object with ``axis_names`` and ``shape`` gives the reference's
     extent, bucket and meta. Only a ``SnapshotMesh`` runs the step: with
-    an extent above 1 its lane axis is split over the mesh's devices, the
-    common graph copied to each, and the results gathered onto the first
-    device, whose lanes equal the unmeshed step's bit for bit.
+    an extent above 1 the step's lane axis is split over the mesh's
+    devices, the common graph copied to each, and the results gathered
+    onto the first device, whose lanes equal the unmeshed step's bit for
+    bit. A large window is placed instead (:func:`place_window`) and
+    stepped with nothing gathered.
     """
-    sh = COMMONGRAPH_SHAPES[shape_id]
-    s, n = sh["n_snapshots"], sh["n_nodes"]
-    e_cg, e_d = sh["cg_edges"], sh["delta_edges"]
+    s, n = sizes["n_snapshots"], sizes["n_nodes"]
+    e_cg, e_d = sizes["cg_edges"], sizes["delta_edges"]
     ax = MeshAxes() if mesh is None else MeshAxes.for_mesh(mesh)
     extent = 1 if mesh is None else ax.n_batch_shards(mesh)
     sb = lane_bucket(s, extent)
@@ -112,7 +135,7 @@ def make_commongraph_cell(shape_id: str, mesh=None,
         return res.values, res.parent, res.iterations, res.edge_work
 
     return Cell(
-        name=f"commongraph/{shape_id}",
+        name=name,
         fn=evolve_step,
         args=(values, parent, cg, delta, lane_valid),
         in_specs=(state_spec, state_spec, cg_spec, delta_spec, P(bd)),
@@ -147,6 +170,74 @@ def _sharded_step(mesh, n, max_iters, values, parent, cg_block, delta_block,
                   for sd in shards]
     return incremental_additions_sharded(n, SEMIRING, shards, max_iters,
                                          track_parents=False)
+
+
+class PlacedWindow(NamedTuple):
+    """A CommonGraph window placed on a ``SnapshotMesh`` by
+    :func:`place_window`: one ``LaneShard`` per device, without state,
+    holding that device's contiguous lanes' Δ rows and ``lane_valid``
+    slice and its copy of the common graph."""
+
+    shards: tuple
+    num_nodes: int
+    max_iters: int
+
+    def step(self, values: torch.Tensor) -> ShardedResult:
+        """The cell's step on every lane from the common graph's fixpoint
+        ``values`` (``[n]``, on the mesh's first device; parents are not
+        tracked, as the unmeshed step's are not): the row broadcast to
+        each device and expanded there, each shard seeded from its Δ rows
+        and run to its fixpoint, as the unmeshed step, and the results
+        left on their devices. Every lane equals the unmeshed step's bit
+        for bit (values, iterations, ``edge_work``)."""
+        from repro_torch.core.trigrid import _broadcast_lane_state
+        with trace.span("cell.step"):
+            shards = _broadcast_lane_state(self.shards, values)
+            return incremental_additions_resident(
+                self.num_nodes, SEMIRING, shards, self.max_iters,
+                track_parents=False)
+
+
+def window_lanes(n_snapshots: int, extent: int) -> int:
+    """The lanes of a window of ``n_snapshots`` placed over ``extent``
+    devices: as many a device, the fewest that hold every snapshot. A
+    placement keeps one shape from set-up to the end, so it needs no
+    power-of-two bucket (``lane_bucket``) to bound the shapes it
+    launches; its padding lanes (fewer than ``extent``) only even out
+    the devices."""
+    if n_snapshots < 1 or extent < 1:
+        raise ValueError(f"need a snapshot and a device, got "
+                         f"{n_snapshots} and {extent}")
+    return extent * -(-n_snapshots // extent)
+
+
+def place_window(sizes: dict, mesh, cg_block: EdgeBlock,
+                 delta_block: EdgeBlock, lane_valid: torch.Tensor,
+                 max_iters: int = 64) -> PlacedWindow:
+    """Put the window of ``sizes`` on ``mesh`` (a ``SnapshotMesh``) once:
+    each device gets its contiguous lanes of ``delta_block`` (``[lanes,
+    delta_edges]``, ``lanes = window_lanes(n_snapshots, extent)``) and
+    of ``lane_valid``, and a copy of ``cg_block`` (``[cg_edges]``), where
+    they stay (``core/trigrid.py`` ``_place_snapshot_axis``, span
+    ``shard.place``). The arguments may lie on any device and may be
+    freed afterwards."""
+    from repro_torch.core.trigrid import _place_snapshot_axis
+    from repro_torch.launch.mesh import SnapshotMesh
+    if not isinstance(mesh, SnapshotMesh):
+        raise TypeError(f"a window is placed on a SnapshotMesh, not "
+                        f"{type(mesh).__name__}")
+    lanes = window_lanes(sizes["n_snapshots"], mesh.shape["data"])
+    want = dict(cg=(sizes["cg_edges"],),
+                delta=(lanes, sizes["delta_edges"]), lane_valid=(lanes,))
+    got = dict(cg=tuple(cg_block.src.shape),
+               delta=tuple(delta_block.src.shape),
+               lane_valid=tuple(lane_valid.shape))
+    if got != want:
+        raise ValueError(f"the window's arguments have shapes {got}, not "
+                         f"{want}")
+    shards = _place_snapshot_axis(mesh, (delta_block,), lane_valid,
+                                  (cg_block,))
+    return PlacedWindow(tuple(shards), sizes["n_nodes"], max_iters)
 
 
 class CommonGraphInputs(NamedTuple):

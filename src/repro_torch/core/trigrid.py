@@ -32,6 +32,7 @@ from repro_torch.core.kickstarter import StreamStats
 from repro_torch.core.snapshots import SnapshotStore
 from repro_torch.graph.edgeset import EdgeBlock, EdgeView, lane_bucket
 from repro_torch.graph.engine import (
+    NO_PARENT,
     LaneShard,
     gather_lane_states,
     host_sync,
@@ -314,6 +315,75 @@ def _shard_snapshot_axis(mesh, values, parent, blocks, lane_valid):
                       for b in blocks),
                 lane_valid[rows].to(dev)))
     return shards
+
+
+def _place_snapshot_axis(mesh, blocks, lane_valid, shared_blocks=()):
+    """Place a launch's lane axis on the mesh once, to stay there from
+    launch to launch: device ``d`` of ``D`` gets the contiguous lanes
+    ``[d·b/D, (d+1)·b/D)`` of :func:`_shard_snapshot_axis`'s layout, of
+    each stacked block in ``blocks`` and of ``lane_valid`` (``b`` a
+    multiple of ``D``: no bucket, since a placement keeps one shape), and
+    a copy of each of ``shared_blocks``, as
+    a :class:`LaneShard` without state (``values`` and ``parent`` None:
+    :func:`_broadcast_lane_state` gives each launch its own). Every piece
+    is copied, so the caller may free its tensors. Span ``shard.place``;
+    each piece placed on a shard after the first from the first shard's
+    device adds its bytes to ``shard.copied_bytes`` (counted by shard
+    index, so a mesh that repeats a device counts as one of distinct
+    devices)."""
+    per, rest = divmod(lane_valid.shape[0], mesh.shape["data"])
+    if rest:
+        raise ValueError(f"{lane_valid.shape[0]} lanes do not divide over "
+                         f"{mesh.shape['data']} devices")
+    first = mesh.devices[0]
+    shards = []
+    with trace.span("shard.place"):
+        for d, dev in enumerate(mesh.devices):
+            def put(t, d=d, dev=dev):
+                if d and t.device == first:
+                    trace.count("shard.copied_bytes",
+                                t.numel() * t.element_size())
+                return t.to(dev, copy=True)
+            rows = slice(d * per, (d + 1) * per)
+            shards.append(LaneShard(
+                None, None,
+                tuple(EdgeBlock(*(put(a[rows]) for a in b)) for b in blocks),
+                put(lane_valid[rows]),
+                tuple(EdgeBlock(*(put(a) for a in b))
+                      for b in shared_blocks)))
+    return shards
+
+
+def _broadcast_lane_state(shards, values):
+    """The placed ``shards`` (:func:`_place_snapshot_axis`) with one
+    launch's state: the ``[N]`` row ``values``, which lies on the first
+    shard's device, copied once to each other shard's device and expanded
+    there over its lanes (a view: no shard holds ``[S_d, N]`` copies of
+    it, let alone the whole launch's ``[S, N]``), with a row of
+    ``NO_PARENT`` made on each shard's device for parents. Span
+    ``shard.broadcast``, with the device span ``shard.broadcast_device_ns``
+    around the copies alone, on the first shard's device, whose stream
+    runs them; each row copied to a shard after the first adds its bytes
+    to ``shard.copied_bytes``."""
+    first = shards[0].lane_valid.device
+    if values.device != first:
+        raise ValueError(f"the row lies on {values.device}, not on the "
+                         f"first shard's device {first}")
+    n = values.shape[-1]
+    with trace.span("shard.broadcast"):
+        with trace.device_span("shard.broadcast_device_ns", first):
+            rows = [values.to(shard.lane_valid.device) for shard in shards]
+        if len(shards) > 1:
+            trace.count("shard.copied_bytes", (len(shards) - 1)
+                        * values.numel() * values.element_size())
+        out = []
+        for shard, row in zip(shards, rows):
+            lanes = shard.lane_valid.shape[0]
+            parent = torch.full((n,), NO_PARENT, dtype=torch.int32,
+                                device=row.device)
+            out.append(shard._replace(values=row.expand(lanes, n),
+                                      parent=parent.expand(lanes, n)))
+    return out
 
 
 def _lane_launch(store: SnapshotStore, mesh, semiring: Semiring, values,

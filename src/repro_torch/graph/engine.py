@@ -40,7 +40,6 @@ work is added last.
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -190,11 +189,13 @@ def relax_sweep_fused(
 
 def _live_flags(lives: "list[torch.Tensor]") -> "list[bool]":
     """Whether each shard has a lane still running: ONE host read for all
-    shards (a shard's flag is copied to the first shard's device first),
-    so no shard's device waits for another's read."""
+    shards (a shard's flag is copied to the first shard's device first,
+    a byte a shard in ``shard.copied_bytes``), so no shard's device
+    waits for another's read."""
     if len(lives) == 1:
         return [bool(lives[0].any())]
     dev = lives[0].device
+    trace.count("shard.copied_bytes", len(lives) - 1)
     return torch.stack([live.any().to(dev) for live in lives]).tolist()
 
 
@@ -224,8 +225,12 @@ def _fixpoint_shards(semiring: Semiring, num_nodes: int, max_iters: int,
     Spans ``engine.fixpoint`` (the call), ``engine.launch`` (a round's
     enqueue, from one flag read to the next) and ``engine.flag_read``;
     while a recording is on, host counters ``engine.rounds`` (flag reads)
-    and ``engine.launched_sweeps`` (each round's chunk length) and, on
-    the device, ``engine.sweeps`` (the call's most lane iterations),
+    and ``engine.launched_sweeps`` (each round's chunk length), in a
+    call of more than one shard ``engine.shard_rounds`` (each round's
+    shards, running or not) and ``engine.idle_shard_rounds`` (each
+    round's shards skipped, all their lanes stopped while another shard
+    ran) and, on the device,
+    ``engine.sweeps`` (the call's most lane iterations),
     ``engine.active_edges`` (the chunks' work, summed over lanes) and
     ``engine.attempted_edges`` (each lane's real edges times its
     iterations)."""
@@ -264,11 +269,18 @@ def _fixpoint_shards(semiring: Semiring, num_nodes: int, max_iters: int,
                 lives = [s[2].any(1) & (s[3] < max_iters) for s in states]
             launched += k
             trace.count("engine.launched_sweeps", k)
+            if len(flags) > 1:
+                trace.count("engine.shard_rounds", len(flags))
+                idle = len(flags) - sum(flags)
+                if idle:
+                    trace.count("engine.idle_shard_rounds", idle)
             flags = _read_flags(lives)
             del lives   # freed before the next round, as the peak expects
         if rec:
             dev = states[0][0].device
             most = [s[3].max() for s in states]
+            if len(most) > 1:
+                trace.count("shard.copied_bytes", 4 * (len(most) - 1))
             trace.add("engine.sweeps", most[0] if len(most) == 1 else
                       torch.stack([m.to(dev) for m in most]).max())
             for state, r in zip(states, real):
@@ -427,11 +439,27 @@ class LaneShard(NamedTuple):
     shared_blocks: Blocks = ()    # broadcast blocks on the shard's device
 
 
-def _incremental_shards(semiring, num_nodes, max_iters, shards,
-                        track_parents, seed, fused_k) -> FixpointResult:
-    """Seed, run and gather lane shards, each ``(values, parent, blocks,
-    seed_blocks, lane_valid)`` on its own device; the result lies on the
-    first shard's device, lanes in shard order."""
+class ShardedResult(NamedTuple):
+    """A lane-sharded launch's results left where they were made: one
+    :class:`FixpointResult` per shard (``[S_d, N]`` values and parents,
+    ``[S_d]`` iterations, work and unstable counts) on that shard's
+    device, shards in lane order. Nothing is gathered."""
+
+    shards: "tuple[FixpointResult, ...]"
+
+    def rows(self) -> "list[torch.Tensor]":
+        """Every lane's ``[N]`` values, in lane order, each on its
+        shard's device."""
+        return [row for r in self.shards for row in r.values.unbind(0)]
+
+
+def _resident_shards(semiring, num_nodes, max_iters, shards,
+                     track_parents, seed, fused_k) -> ShardedResult:
+    """Seed and run lane shards, each ``(values, parent, blocks,
+    seed_blocks, lane_valid)`` on its own device, and leave each shard's
+    result there: its iterations count the seed sweep, its work adds the
+    seed's, and its padding lanes' (``lane_valid`` False) iterations,
+    work and unstable counts are zeroed."""
     from repro_torch.graph.stability import seed_state
     with trace.span("engine.seed"):
         seeded = [seed_state(semiring, num_nodes, values, parent, seeds,
@@ -442,29 +470,40 @@ def _incremental_shards(semiring, num_nodes, max_iters, shards,
         [(sd.values, sd.parent, sd.frontier, blocks)
          for sd, (_, _, blocks, _, _) in zip(seeded, shards)],
         track_parents, fused_k)
-    dev = shards[0][0].device
+    out = []
+    for (*_, lane_valid), sd, run in zip(shards, seeded, runs):
+        iterations = run.iterations + 1
+        work = run.edge_work + sd.seed_work
+        unstable = sd.unstable
+        if lane_valid is not None:
+            iterations = torch.where(lane_valid, iterations, 0)
+            work = torch.where(lane_valid, work, 0.0)
+            unstable = torch.where(lane_valid, unstable, 0)
+        out.append(FixpointResult(run.values, run.parent, iterations, work,
+                                  unstable))
+    return ShardedResult(tuple(out))
 
-    def gather(parts):
-        if len(parts) == 1:
-            return parts[0]
-        return torch.cat([t.to(dev) for t in parts])
 
-    with trace.span("shard.gather") if len(shards) > 1 \
-            else contextlib.nullcontext():
-        values = gather([r.values for r in runs])
-        parent = gather([r.parent for r in runs])
-        iterations = gather([r.iterations for r in runs]) + 1
-        work = gather([r.edge_work for r in runs]) \
-            + gather([sd.seed_work for sd in seeded])
-        unstable = gather([sd.unstable for sd in seeded])
-    if shards[0][4] is None:
-        return FixpointResult(values, parent, iterations, work, unstable)
-    lane_valid = gather([s[4] for s in shards])
-    return FixpointResult(
-        values, parent,
-        torch.where(lane_valid, iterations, 0),
-        torch.where(lane_valid, work, 0.0),
-        torch.where(lane_valid, unstable, 0))
+def _incremental_shards(semiring, num_nodes, max_iters, shards,
+                        track_parents, seed, fused_k) -> FixpointResult:
+    """:func:`_resident_shards`, gathered in lane order onto the first
+    shard's device."""
+    parts = _resident_shards(semiring, num_nodes, max_iters, shards,
+                             track_parents, seed, fused_k).shards
+    if len(parts) == 1:
+        return parts[0]
+    dev = parts[0].values.device
+    with trace.span("shard.gather"):
+        return FixpointResult(*(torch.cat([t.to(dev) for t in field])
+                                for field in zip(*parts)))
+
+
+def _lane_shards(shards: "Sequence[LaneShard]"):
+    """:class:`LaneShard` s as the engine runs them: each relaxes its
+    shared and Δ blocks and seeds from its last Δ group."""
+    return [(s.values, s.parent,
+             tuple(s.shared_blocks) + tuple(s.delta_blocks),
+             (s.delta_blocks[-1],), s.lane_valid) for s in shards]
 
 
 def batched_incremental(semiring, num_nodes, max_iters,
@@ -533,8 +572,26 @@ def incremental_additions_sharded(
     for bit (values, parents, iterations, work, unstable): they are
     per-lane quantities, so the split cannot change them.
     """
-    return _incremental_shards(
-        semiring, num_nodes, max_iters,
-        [(s.values, s.parent, tuple(s.shared_blocks) + tuple(s.delta_blocks),
-          (s.delta_blocks[-1],), s.lane_valid) for s in shards],
-        track_parents, seed, fused_k)
+    return _incremental_shards(semiring, num_nodes, max_iters,
+                               _lane_shards(shards), track_parents, seed,
+                               fused_k)
+
+
+def incremental_additions_resident(
+    num_nodes: int,
+    semiring: Semiring,
+    shards: "Sequence[LaneShard]",
+    max_iters: int = 10_000,
+    track_parents: bool = True,
+    seed: str = "instability",
+    fused_k: int | None = None,
+) -> ShardedResult:
+    """:func:`incremental_additions_sharded` without the gather: each
+    shard's lanes are seeded and run on its device, as there, and stay
+    there (a :class:`ShardedResult`). Each lane equals the gathered
+    launch's lane bit for bit (values, parents, iterations, work,
+    unstable); padding lanes' iterations, work and unstable counts are
+    zeroed on their shard."""
+    return _resident_shards(semiring, num_nodes, max_iters,
+                            _lane_shards(shards), track_parents, seed,
+                            fused_k)

@@ -12,8 +12,12 @@ parallelism mapped onto cards.
 The port's mesh is an explicit tuple of ``torch.device`` s and may name a
 device more than once: four slices on one card (or on the CPU) run the
 same split as four cards, which is how the tests and ``chip_smoke.py``
-exercise it on one device. Its first device must be the store's: results
-are gathered there.
+exercise it on one device. The executors' state lies on the mesh's first
+device, the store's, and their results are gathered there. A CommonGraph
+window too large for one device is placed instead
+(``configs/commongraph.py`` ``place_window``): each device keeps its own
+lanes from set-up on, only the common graph's ``[N]`` fixpoint row comes
+from the first device each step, and nothing is gathered.
 
 The production meshes (``make_production_mesh``: 16 x 16 chips, or 2
 pods of them) hold no devices: the port places no tensor on 256 chips,
@@ -130,8 +134,8 @@ def make_snapshot_mesh(devices=None) -> SnapshotMesh:
 def mesh_led_by(device) -> SnapshotMesh:
     """The mesh evolve's ``--shard`` splits over: every local card with
     ``device`` first (``cuda:k``, then the others in index order), or the
-    one-device mesh of a CPU ``device``. Results are gathered on the first
-    device, where the store lies."""
+    one-device mesh of a CPU ``device``. The executors gather their
+    results on the first device, where the store lies."""
     device = _canonical(device)
     if device.type != "cuda":
         return make_snapshot_mesh([device])

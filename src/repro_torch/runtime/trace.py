@@ -16,8 +16,11 @@ spans lie on the profiler's clock beside the device's kernels (a chrome
 trace the profiler exports shows both), and a span's time holds the cost
 of its own range. :func:`count` adds to a host integer;
 :func:`add` keeps a device tensor for a counter, with no device operation
-and no host read. :func:`totals` sums and reads everything once;
-:func:`reset` clears it.
+and no host read. :func:`device_span` times the device work enqueued
+inside it on one device's stream, between two CUDA events kept unread,
+into a counter of nanoseconds (on a CPU device, where work runs as it
+is called, by the host clock). :func:`totals` sums and reads everything
+once; :func:`reset` clears it.
 
 Spans nest through one stack, so they belong to the thread that runs the
 port's host loop; a span that is open when the recording ends still
@@ -46,6 +49,8 @@ _counts: dict[str, int] = {}
 # _FOLD of them they are summed into one
 _kept: dict[tuple, list[torch.Tensor]] = {}
 _FOLD = 1024
+# counter name -> (start, end) CUDA event pairs of its device spans, unread
+_events: dict[str, list[tuple]] = {}
 _stack: list["_Span"] = []
 
 
@@ -120,6 +125,56 @@ def add(name: str, value: torch.Tensor) -> None:
         kept[:] = [_sum(kept)]
 
 
+class _DeviceSpan:
+    __slots__ = ("name", "device", "t0", "start")
+
+    def __init__(self, name: str, device: torch.device):
+        self.name, self.device = name, device
+
+    def __enter__(self):
+        if self.device.type == "cuda":
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.start.record(torch.cuda.current_stream(self.device))
+        else:
+            self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self.device.type != "cuda":
+            _counts[self.name] = (_counts.get(self.name, 0)
+                                  + time.perf_counter_ns() - self.t0)
+            return False
+        end = torch.cuda.Event(enable_timing=True)
+        end.record(torch.cuda.current_stream(self.device))
+        pairs = _events.setdefault(self.name, [])
+        pairs.append((self.start, end))
+        if len(pairs) > _FOLD:
+            _counts[self.name] = _counts.get(self.name, 0) + _read(pairs)
+            pairs.clear()
+        return False
+
+
+def device_span(name: str, device):
+    """A context that, while a recording is on, adds to the counter
+    ``name`` the nanoseconds ``device`` spends on the work enqueued
+    inside it on its current stream: two CUDA events recorded there,
+    read at :func:`totals` (on a CPU device, where work runs as it is
+    called, the host clock's time inside). Off, the shared no-op."""
+    if _depth > 0 or _profiler._is_profiler_enabled:
+        return _DeviceSpan(name, torch.device(device))
+    return _OFF
+
+
+def _read(pairs: "list[tuple]") -> int:
+    """The nanoseconds between each pair's events, summed, once each end
+    has been reached."""
+    total = 0.0
+    for start, end in pairs:
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return round(total * 1e6)
+
+
 def _sum(kept: "list[torch.Tensor]") -> torch.Tensor:
     """The sum of every element of ``kept``, as an int64 tensor [1]."""
     return torch.stack([t.sum(dtype=torch.int64) for t in kept]) \
@@ -141,18 +196,22 @@ def recording():
 def totals() -> dict:
     """What was recorded since the last :func:`reset`: ``spans`` (per name
     ``count``, ``total_s`` and ``self_s``) and ``counts`` (the host
-    counters, and the device counters' kept tensors summed and read once
-    per name and device, as ints)."""
+    counters, the device counters' kept tensors summed and read once per
+    name and device, and the device spans' nanoseconds, as ints)."""
     counts = dict(_counts)
     for (name, _), kept in _kept.items():
         counts[name] = counts.get(name, 0) + int(_sum(kept))
+    for name, pairs in _events.items():
+        counts[name] = counts.get(name, 0) + _read(pairs)
     return dict(spans={name: dict(count=c, total_s=t / 1e9, self_s=s / 1e9)
                        for name, (c, t, s) in _spans.items()},
                 counts=counts)
 
 
 def reset() -> None:
-    """Forget every span, counter and kept tensor recorded so far."""
+    """Forget every span, counter, kept tensor and event recorded so
+    far."""
     _spans.clear()
     _counts.clear()
     _kept.clear()
+    _events.clear()

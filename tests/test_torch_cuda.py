@@ -992,6 +992,83 @@ def test_cuda_commongraph_cell_matches_cpu(cuda_device, monkeypatch, extent):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("cards", ["repeat", "every"])
+def test_cuda_placed_window_matches_unmeshed(cuda_device, monkeypatch,
+                                             cards):
+    """The window placed on a mesh naming the card four times, and on
+    every card (skipped below two), with each shard's lanes kept on its
+    card (``place_window``, ``PlacedWindow.step``): every lane, padding
+    lanes included, equals the unmeshed cell's step on the card bit for
+    bit (values, iterations, ``edge_work``), and lies on its shard's
+    card; the broadcast's bytes and, between cards, its copies' device
+    time are counted."""
+    from repro_torch.configs import commongraph
+    from repro_torch.runtime import trace
+    if cards == "every":
+        count = torch.cuda.device_count()
+        if count < 2:
+            pytest.skip("needs two or more cards")
+        devices = [torch.device("cuda", i) for i in range(count)]
+    else:
+        devices = [torch.device("cuda", torch.cuda.current_device())] * 4
+    extent = len(devices)
+    monkeypatch.setitem(commongraph.COMMONGRAPH_SHAPES, "small_5x",
+                        dict(SMALL_CELL))
+    edges = commongraph.commongraph_edges("small_5x", extent, seed=1)
+    inputs = commongraph.commongraph_inputs("small_5x", extent, 1,
+                                            devices[0], edges)
+    want = commongraph.make_commongraph_cell("small_5x").fn(*inputs)
+    mesh = make_snapshot_mesh(devices)
+    lanes = commongraph.window_lanes(SMALL_CELL["n_snapshots"], extent)
+    window = commongraph.place_window(
+        SMALL_CELL, mesh, inputs.cg,
+        type(inputs.delta)(*(a[:lanes] for a in inputs.delta)),
+        inputs.lane_valid[:lanes])
+    trace.reset()
+    with trace.recording():
+        got = window.step(inputs.values[0])
+    copied = trace.totals()["counts"]
+    trace.reset()
+    assert copied["shard.copied_bytes"] >= (extent - 1) * 4 * 1024
+    if cards == "every":    # the copies between cards, on the first's clock
+        assert copied["shard.broadcast_device_ns"] > 0
+    assert [r.values.shape[0] for r in got.shards] == \
+        [lanes // extent] * extent
+    lane = 0
+    for dev, r in zip(devices, got.shards):
+        for i in range(r.values.shape[0]):
+            assert r.values.device == dev
+            for g, w in zip((r.values[i], r.iterations[i], r.edge_work[i]),
+                            (want[0][lane], want[2][lane], want[3][lane])):
+                _same_bits(g.cpu().reshape(-1), w.cpu().reshape(-1))
+            lane += 1
+    assert lane == lanes
+
+
+@pytest.mark.cuda
+def test_cuda_device_span_times_the_stream(cuda_device):
+    """On a card a device span keeps its two CUDA events unread and
+    ``totals`` reads them: a 256 MiB copy takes more than 50 us there
+    and less than the host's time around it, synchronized."""
+    import time
+
+    from repro_torch.runtime import trace
+    x = torch.empty(2**26, device=cuda_device)
+    torch.cuda.synchronize(cuda_device)
+    trace.reset()
+    with trace.recording():
+        t0 = time.perf_counter_ns()
+        with trace.device_span("probe_ns", cuda_device):
+            x.clone()
+        assert len(trace._events["probe_ns"]) == 1
+        torch.cuda.synchronize(cuda_device)
+        host = time.perf_counter_ns() - t0
+    ns = trace.totals()["counts"]["probe_ns"]
+    trace.reset()
+    assert 50_000 < ns <= host and trace._events == {}
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("track", [False, True])
 @pytest.mark.parametrize("lanes", [32, 33, 64])
 def test_cuda_relax_multi_wide_lanes(cuda_device, lanes, track):

@@ -10,6 +10,7 @@ import contextlib
 import importlib.util
 import pathlib
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -361,6 +362,28 @@ def test_reset_clears_and_recording_nests():
     assert trace.totals() == {"spans": {}, "counts": {}}
 
 
+@pytest.mark.parametrize("mode", MODES)
+def test_device_span_counts_nanoseconds(mode):
+    """Off, a device span is the shared no-op and records nothing; on a
+    CPU device it adds the host clock's nanoseconds inside it to its
+    counter, span after span, and keeps no events; ``reset`` clears it."""
+    assert trace.device_span("probe_ns", "cpu") is trace.span("probe")
+    with trace.device_span("probe_ns", "cpu"):
+        pass
+    assert trace.totals() == {"spans": {}, "counts": {}}
+    with recording_on(mode):
+        with trace.span("outer"):
+            for _ in range(2):
+                with trace.device_span("probe_ns", torch.device("cpu")):
+                    time.sleep(0.002)
+    got = trace.totals()
+    assert 4_000_000 <= got["counts"]["probe_ns"] \
+        <= 1e9 * got["spans"]["outer"]["total_s"]
+    assert trace._events == {}
+    trace.reset()
+    assert trace.totals() == {"spans": {}, "counts": {}}
+
+
 def test_add_keeps_tensors_and_totals_sums_them(monkeypatch):
     """``add`` keeps the tensor itself (no copy, no operation); past the
     fold limit the kept tensors are summed into one; ``totals`` sums
@@ -381,16 +404,23 @@ def test_add_keeps_tensors_and_totals_sums_them(monkeypatch):
 TOTALS = dict(
     spans={"engine.launch": dict(count=40, total_s=0.003, self_s=0.002),
            "engine.flag_read": dict(count=42, total_s=0.0085,
-                                    self_s=0.0085)},
+                                    self_s=0.0085),
+           "cell.step": dict(count=4, total_s=0.4, self_s=0.01)},
     counts={"engine.rounds": 42, "engine.sweeps": 40,
             "engine.launched_sweeps": 50,
-            "engine.active_edges": 1500, "engine.attempted_edges": 6000})
+            "engine.active_edges": 1500, "engine.attempted_edges": 6000,
+            "shard.copied_bytes": 4 * 192 * 2**20,
+            "shard.broadcast_device_ns": 4 * 500_000,
+            "engine.shard_rounds": 400, "engine.idle_shard_rounds": 20})
 ZERO = dict(
     spans={"engine.launch": dict(count=0, total_s=0.0, self_s=0.0),
-           "engine.flag_read": dict(count=0, total_s=0.0, self_s=0.0)},
+           "engine.flag_read": dict(count=0, total_s=0.0, self_s=0.0),
+           "cell.step": dict(count=0, total_s=0.0, self_s=0.0)},
     counts={"engine.rounds": 0, "engine.sweeps": 0,
             "engine.launched_sweeps": 0,
-            "engine.active_edges": 0, "engine.attempted_edges": 0})
+            "engine.active_edges": 0, "engine.attempted_edges": 0,
+            "shard.copied_bytes": 0, "shard.broadcast_device_ns": 0,
+            "engine.shard_rounds": 0, "engine.idle_shard_rounds": 0})
 
 
 def _metric(name):
@@ -407,6 +437,9 @@ def _metric(name):
     ("round_host_us", 250.0),
     ("active_edge_pct", 25.0),
     ("dead_sweep_pct", 20.0),
+    ("xcard_mib_per_step", 192.0),
+    ("shard_exchange_ms", 0.5),
+    ("idle_shard_pct", 5.0),
 ])
 def test_metric_reads_the_program_totals(name, want, monkeypatch):
     """Each of the benchmark's readers of ``trace.totals()`` reads
