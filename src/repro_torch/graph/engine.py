@@ -162,6 +162,7 @@ def relax_sweep_fused(
     allowed: torch.Tensor | int | None = None,
     track_parents: bool = True,
     work: torch.Tensor | None = None,
+    visits: torch.Tensor | None = None,
 ):
     """Up to ``k`` frontier-masked sweeps as one fused chunk.
 
@@ -170,7 +171,10 @@ def relax_sweep_fused(
     lane); nothing syncs with the host inside it. Runs the fused relax
     kernel (``kernels/edge_relax_multi``) on the state's device. Each
     sweep's work is added in turn to ``work`` (f32, one entry per lane;
-    default zeros). Returns ``(values, parent, frontier, sweeps, work)``.
+    default zeros). ``visits`` (int64 ``[2]``), where given, gains the
+    entries the chunk's in-place rounds visited and those a dense pass
+    would have (``relax_multi``). Returns ``(values, parent, frontier,
+    sweeps, work)``.
     """
     batched = values.dim() == 2
     if not batched:
@@ -181,7 +185,8 @@ def relax_sweep_fused(
     out = relax_multi(values, parent, frontier, [tuple(b) for b in blocks],
                       k if allowed is None else allowed,
                       op=KERNEL_OP_FOR[semiring.name], num_nodes=num_nodes,
-                      k=k, track_parents=track_parents, work=work)
+                      k=k, track_parents=track_parents, work=work,
+                      visits=visits)
     if batched:
         return out
     return tuple(t[0] for t in out)
@@ -231,9 +236,12 @@ def _fixpoint_shards(semiring: Semiring, num_nodes: int, max_iters: int,
     round's shards skipped, all their lanes stopped while another shard
     ran) and, on the device,
     ``engine.sweeps`` (the call's most lane iterations),
-    ``engine.active_edges`` (the chunks' work, summed over lanes) and
+    ``engine.active_edges`` (the chunks' work, summed over lanes),
     ``engine.attempted_edges`` (each lane's real edges times its
-    iterations)."""
+    iterations), ``relax.finish_visited`` (the entries the kernel's
+    in-place finish rounds visited) and ``relax.finish_entries`` (the
+    entries a dense pass would have visited in those rounds: the running
+    lanes' N a round)."""
     with trace.span("engine.fixpoint"):
         rec = trace.active()
         states = []
@@ -245,13 +253,15 @@ def _fixpoint_shards(semiring: Semiring, num_nodes: int, max_iters: int,
             states.append([values, parent, frontier, it, work, tuple(blocks)])
         real = [_real_edges(s[5], num_nodes) for s in states] if rec \
             else None
+        visits = [torch.zeros(2, dtype=torch.int64, device=s[0].device)
+                  for s in states] if rec else [None] * len(states)
         flags = _read_flags([s[2].any(1) & (s[3] < max_iters)
                              for s in states])
         launched = 0
         while any(flags):
             k = _chunk_sweeps(fused_k, launched, max_iters)
             with trace.span("engine.launch"):
-                for state, running in zip(states, flags):
+                for state, running, seen in zip(states, flags, visits):
                     if not running:
                         continue
                     values, parent, frontier, it, work, blocks = state
@@ -262,7 +272,8 @@ def _fixpoint_shards(semiring: Semiring, num_nodes: int, max_iters: int,
                     values, parent, frontier, sweeps, dw = relax_sweep_fused(
                         semiring, num_nodes, values, parent, frontier,
                         blocks, k=k, allowed=cap,
-                        track_parents=track_parents, work=total)
+                        track_parents=track_parents, work=total,
+                        visits=seen)
                     # lanes that did not run add 0 sweeps and +0.0 work
                     state[:5] = (values, parent, frontier, it + sweeps,
                                  dw if total is not None else work + dw)
@@ -283,9 +294,11 @@ def _fixpoint_shards(semiring: Semiring, num_nodes: int, max_iters: int,
                 trace.count("shard.copied_bytes", 4 * (len(most) - 1))
             trace.add("engine.sweeps", most[0] if len(most) == 1 else
                       torch.stack([m.to(dev) for m in most]).max())
-            for state, r in zip(states, real):
+            for state, r, seen in zip(states, real, visits):
                 trace.add("engine.active_edges", state[4])
                 trace.add("engine.attempted_edges", r * state[3])
+                trace.add("relax.finish_visited", seen[0])
+                trace.add("relax.finish_entries", seen[1])
     return [FixpointResult(s[0], s[1], s[3], s[4]) for s in states]
 
 

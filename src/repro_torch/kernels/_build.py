@@ -40,7 +40,8 @@ SIGNATURES = {
     # relax_multi_max_lanes; the error-string lookup is apart)
     "relax_multi_max_lanes": (),
     "relax_multi_run": (_I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _P,
-                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P),
+                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P, _P),
     "edge_relax_run": (_I, _I, _P, _P, _P, _P, _LL, _P, _P),
     "segment_reduce_max_width": (),
     "segment_reduce_scratch": (_I, _I, _I),

@@ -28,7 +28,8 @@ def _embedding_bag(table, ids, weights, perm, offsets):
     return table.new_empty((offsets.shape[0] - 1, table.shape[1]))
 
 
-def _relax_multi(values, parent, frontier, blocks, cap, track_parents):
+def _relax_multi(values, parent, frontier, blocks, cap, track_parents,
+                 visits=None):
     lanes = values.shape[0]
     return (torch.empty_like(values),
             torch.empty_like(parent) if track_parents
@@ -47,7 +48,8 @@ def _ops():
             ("embedding_bag(Tensor table, Tensor ids, Tensor weights, "
              "Tensor perm, Tensor offsets) -> Tensor", _embedding_bag),
             ("relax_multi(Tensor values, Tensor parent, Tensor frontier, "
-             "Tensor[] blocks, Tensor cap, bool track_parents) -> "
+             "Tensor[] blocks, Tensor cap, bool track_parents, "
+             "Tensor(a!)? visits=None) -> "
              "(Tensor, Tensor, Tensor, Tensor, Tensor)", _relax_multi)):
         lib.define(schema)
         lib.impl(schema.split("(")[0], fn, "Meta")
@@ -65,12 +67,14 @@ def embedding_bag(table, ids, weights, layout) -> torch.Tensor:
                                    layout.offsets)
 
 
-def relax_multi(values, parent, frontier, blocks, track_parents: bool):
+def relax_multi(values, parent, frontier, blocks, track_parents: bool,
+                visits=None):
     """``relax_multi``'s launch on meta: ``(values, parent, frontier,
     sweeps, work)``, the caller's ``parent`` when parents are not
-    tracked. The kernel also reads a sweep cap per lane."""
+    tracked. The kernel also reads a sweep cap per lane, and adds to
+    ``visits`` where the caller gives it."""
     cap = torch.empty((values.shape[0],), dtype=torch.int32, device="meta")
     v, p, f, sweeps, work = _ops()[1].relax_multi(
         values, parent, frontier, [t for b in blocks for t in b], cap,
-        track_parents)
+        track_parents, visits)
     return v, p if track_parents else parent, f, sweeps, work

@@ -20,13 +20,13 @@
 // read src and dst of every edge once per lane, gathered a frontier byte
 // per edge and lane and issued one atomic per active edge, all on clones
 // of the caller's state made after an init pass over every best word):
-//   * prepare (one pass over the caller's frontier): fills the best words
-//     with the identity, lane-minor (best[v][lane], so one edge's lanes hit
-//     one sector), and packs the frontier: a bitmap with one bit per
-//     vertex on some running lane's frontier (512 KB at 2^22, read through
-//     L1 and L2) and, with more than one lane, a word of lane bits per
-//     vertex, in groups of 32 lanes. A lane that may not run (allowed 0)
-//     gets no bits.
+//   * prepare (one pass over the caller's frontier): zeroes the marks
+//     (see finish), fills the best words with the identity, lane-minor
+//     (best[v][lane], so one edge's lanes hit one sector), and packs the
+//     frontier: a bitmap with one bit per vertex on some running lane's
+//     frontier (512 KB at 2^22, read through L1 and L2) and, with more
+//     than one lane, a word of lane bits per vertex, in groups of 32
+//     lanes. A lane that may not run (allowed 0) gets no bits.
 //   * scatter, one launch per edge block. Each thread reads four edges'
 //     src in one 16-byte load and tests the bitmap; only for a frontier src
 //     does it read dst, w and the lane bits. A block shared by every lane
@@ -42,17 +42,34 @@
 //     Padding edges (dst == N, src 0) fail the dst test. Active edges are
 //     counted per (lane, block).
 //   * finish, once per round, four vertices per thread over all lanes (16-
-//     byte accesses): decode the best, apply the meet, write fresh output
-//     values, parents (when tracked) and frontier for every lane, copying a
-//     lane that did not run in round 0; repack the frontier for the next
-//     round and reset the best words it read (not after the last round);
-//     raise the lane's run flag if it improved a vertex; add the round's
-//     per-block counts, summed in block order, to the lane's f32 work (the
-//     reference's f32 grouping). The work starts from the caller's value,
-//     so a chunk can add each sweep to a running total, one at a time.
-//     Only the best words of lanes that run are read. A round after the
-//     first in which no lane runs returns at once: every lane's outputs
-//     already hold its last round.
+//     byte accesses). Round 0 is dense: decode the best, apply the meet,
+//     write fresh output values, parents (when tracked) and frontier for
+//     every lane, copying a lane that did not run. Later rounds update the
+//     outputs in place and visit only the entries that can change. With
+//     more than one lane, where the round's scatter (rounds >= 1, masked
+//     paths only) first wrote a best word it set a mark, one lane bit per
+//     group of 32 lanes and quad of vertices, from the writer whose plain
+//     read saw the identity (one atomicOr per mark word a warp's first
+//     writes share), so every word that is not the identity has its mark.
+//     For each quad and lane group the finish visits (marks | the round's
+//     frontier bits) & the lanes that run; a warp deals its quads' (quad,
+//     lane) pairs out one a thread, and reads and writes nothing of any
+//     other entry: it reads a visited pair's best words, values and
+//     parents, writes values and parents where they improved and frontier
+//     bytes where they change. With one lane there are no marks (their
+//     atomics cost the scatter more than they saved): a quad's best words
+//     are one 16-byte row, read for every quad, and the rest as above.
+//     Every round repacks the frontier for the next round for every vertex
+//     and resets the best words and marks it read (not after the last
+//     round); raises the lane's run flag if it improved a vertex; adds the
+//     round's per-block counts, summed in block order, to the lane's f32
+//     work (the reference's f32 grouping). The work starts from the
+//     caller's value, so a chunk can add each sweep to a running total,
+//     one at a time. Only the best words of lanes that run are read. A
+//     round after the first in which no lane runs returns at once: every
+//     lane's outputs already hold its last round. The in-place rounds
+//     count the entries they visited and the entries a dense pass would
+//     have (running lanes x n), one atomic per block and round.
 //   * The caller's tensors are only read: no clone, no in-place update.
 //     The k rounds of a chunk are issued back to back with no host sync;
 //     round r of a lane runs only if its frontier was not empty and
@@ -224,16 +241,27 @@ __device__ __forceinline__ bool write_bitmap(uint32_t* bitmap, long long v0, int
   return x != 0;
 }
 
-// Round 0's set-up, one pass: best[v][lane] = identity for every word; the
-// packed frontier of the caller's frontier (bitmap: bit v set when v is on
-// a lane's frontier and that lane may run, i.e. allowed > 0; fbits[g][v]:
-// bit j for lane 32g + j, only with more than one lane); flags[lane] =
-// any(frontier[lane]), flags[lanes] = any bit set.
+// The marks (see the header): bit j of word g * quads + q for lane 32g + j
+// and vertex quad q; mark_words of them, none with one lane.
+__device__ __forceinline__ long long quads(int n) {
+  return (static_cast<long long>(n) + 3) >> 2;
+}
+
+__device__ __forceinline__ long long mark_words(int lanes, int n) {
+  return lanes == 1 ? 0 : static_cast<long long>((lanes + 31) >> 5) * quads(n);
+}
+
+// Round 0's set-up, one pass: the marks zeroed; best[v][lane] = identity
+// for every word; the packed frontier of the caller's frontier (bitmap:
+// bit v set when v is on a lane's frontier and that lane may run, i.e.
+// allowed > 0; fbits[g][v]: bit j for lane 32g + j, only with more than
+// one lane); flags[lane] = any(frontier[lane]), flags[lanes] = any bit
+// set.
 template <int OP, bool TRACK>
 __global__ void __launch_bounds__(kThreads)
 prepare_kernel(int n, int lanes, const uint8_t* __restrict__ frontier,
                const int* __restrict__ allowed, Best<TRACK>* best, uint32_t* bitmap,
-               uint32_t* fbits, int* flags) {
+               uint32_t* fbits, uint32_t* marks, int* flags) {
   extern __shared__ int s_lane[];  // bit 0: may run round 0; bit 1: frontier not empty
   for (int l = threadIdx.x; l < lanes; l += blockDim.x) s_lane[l] = allowed[l] > 0 ? 1 : 0;
   __syncthreads();
@@ -244,6 +272,7 @@ prepare_kernel(int n, int lanes, const uint8_t* __restrict__ frontier,
   const long long first = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   for (long long i = first; i < words / kW; i += threads) store16<TRACK>(best + i * kW, ident);
   for (long long i = words / kW * kW + first; i < words; i += threads) best[i] = ident;
+  for (long long i = first; i < mark_words(lanes, n); i += threads) marks[i] = 0;
   const bool vec = n % 4 == 0 && aligned16(frontier) && (fbits == nullptr || aligned16(fbits));
   const int wl = threadIdx.x & 31;
   const int groups = (lanes + 31) >> 5;
@@ -286,14 +315,17 @@ prepare_kernel(int n, int lanes, const uint8_t* __restrict__ frontier,
 // edge, one lane, no counts). STACKED: grid y is the lane, which reads its
 // own row of the block. flags points at this round's row. Each thread
 // takes kEdgesPerThread consecutive edges, their src in one 16-byte load.
-template <int OP, bool TRACK, bool MASKED, bool STACKED>
+// MARK (a masked round after the first, more than one lane): marks the
+// quads it first writes to.
+template <int OP, bool TRACK, bool MASKED, bool STACKED, bool MARK>
 __global__ void __launch_bounds__(kThreads)
 scatter_kernel(int n, int lanes, const float* __restrict__ values,
                const uint32_t* __restrict__ bitmap, const uint32_t* __restrict__ fbits,
                const int* __restrict__ src, const int* __restrict__ dst,
                const float* __restrict__ w, long long e_len, long long lane_stride,
                const int* __restrict__ flags, const int* __restrict__ allowed, int round,
-               Best<TRACK>* best, unsigned* counts, int nblocks, int block_index) {
+               Best<TRACK>* best, uint32_t* marks, unsigned* counts, int nblocks,
+               int block_index) {
   extern __shared__ unsigned s_count[];  // active edges per lane
   const int own = STACKED ? static_cast<int>(blockIdx.y) : 0;
   const int counted = STACKED ? 1 : lanes;
@@ -343,14 +375,31 @@ scatter_kernel(int n, int lanes, const float* __restrict__ values,
           kmin = __reduce_min_sync(peers, key);
           if (TRACK) smin = __reduce_min_sync(peers, key == kmin ? smin : 0xffffffffu);
         }
-        if (wl != __ffs(peers) - 1) continue;
+        // the least candidate of each dst goes to its word from the
+        // first thread that holds it
+        bool write = false, first = false;  // first: the word held the identity
         Best<TRACK>* slot = best + static_cast<long long>(d) * lanes + lane;
+        Best<TRACK> packed;
         if constexpr (TRACK) {
-          const unsigned long long packed = (static_cast<unsigned long long>(kmin) << 32) | smin;
-          if (packed < *reinterpret_cast<volatile unsigned long long*>(slot)) atomicMin(slot, packed);
+          packed = (static_cast<unsigned long long>(kmin) << 32) | smin;
         } else {
-          if (kmin < *reinterpret_cast<volatile uint32_t*>(slot)) atomicMin(slot, kmin);
+          packed = kmin;
         }
+        if (wl == __ffs(peers) - 1) {
+          const Best<TRACK> seen = *reinterpret_cast<volatile Best<TRACK>*>(slot);
+          write = packed < seen;
+          if (MARK) first = write && seen == ident_word<OP, TRACK>();
+        }
+        if constexpr (MARK) {
+          // one atomicOr per mark word the warp's first writes share
+          const unsigned marking = __ballot_sync(act, first);
+          if (first) {
+            const long long at = static_cast<long long>(lane >> 5) * quads(n) + (d >> 2);
+            const unsigned same = __popc(marking) > 1 ? __match_any_sync(marking, at) : me;
+            if (wl == __ffs(same) - 1) atomicOr(marks + at, 1u << (lane & 31));
+          }
+        }
+        if (write) atomicMin(slot, packed);
       }
     }
   };
@@ -399,16 +448,97 @@ scatter_kernel(int n, int lanes, const float* __restrict__ values,
   }
 }
 
-// The end of round `round` (see the header). Round 0 reads the caller's
-// state (vin, pin, fin); later rounds update the outputs in place.
+// A lane's quad of best words where they are one row (one lane): m of
+// them, the rest the identity; and their reset to the identity.
+template <bool TRACK>
+__device__ __forceinline__ void load_row(const Best<TRACK>* at, int m,
+                                         Best<TRACK> (&p)[kVertsPerThread]) {
+  if (m == kVertsPerThread) {
+    load16<TRACK>(at, p);
+    if constexpr (TRACK) load16<TRACK>(at + 2, p + 2);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kVertsPerThread; ++c) p[c] = c < m ? at[c] : Best<TRACK>(0);
+  }
+}
+
 template <int OP, bool TRACK>
+__device__ __forceinline__ void reset_row(Best<TRACK>* at, int m,
+                                          const Best<TRACK> (&p)[kVertsPerThread]) {
+  const Best<TRACK> ident = ident_word<OP, TRACK>();
+  if (m == kVertsPerThread) {
+    store16<TRACK>(at, ident);
+    if constexpr (TRACK) store16<TRACK>(at + 2, ident);
+  } else {
+#pragma unroll
+    for (int c = 0; c < kVertsPerThread; ++c)
+      if (c < m && p[c] != ident) at[c] = ident;
+  }
+}
+
+// One running lane's quad in place (m vertices from v, its best words p):
+// values and parents written where they improved, frontier bytes where
+// they change from `was` (bit c: vertex c on this round's frontier).
+// Returns the improved bits.
+template <int OP, bool TRACK>
+__device__ __forceinline__ unsigned update_quad(const Best<TRACK> (&p)[kVertsPerThread], int m,
+                                                bool vec, float* v, int* parent, uint8_t* f,
+                                                unsigned was) {
+  constexpr int kV = kVertsPerThread;
+  float val[kV];
+  int par[kV];
+  load4(v, vec, m, val);
+  if constexpr (TRACK) load4(parent, vec, m, par);
+  unsigned improved = 0;
+#pragma unroll
+  for (int c = 0; c < kV; ++c) {
+    if (c >= m) continue;
+    uint32_t key;
+    if constexpr (TRACK) {
+      key = static_cast<uint32_t>(p[c] >> 32);
+    } else {
+      key = p[c];
+    }
+    const float b = from_key<OP>(key);
+    if (is_min<OP>() ? (b < val[c]) : (b > val[c])) {
+      val[c] = b;
+      if constexpr (TRACK) par[c] = static_cast<int>(p[c] & 0xffffffffull);
+      improved |= 1u << c;
+    }
+  }
+  if (improved != 0) {
+    store4(v, vec, m, val);
+    if constexpr (TRACK) store4(parent, vec, m, par);
+  }
+  if (improved != was) {
+    uint8_t fr[kV];
+#pragma unroll
+    for (int c = 0; c < kV; ++c) fr[c] = (improved >> c) & 1u;
+    store4(f, vec, m, fr);
+  }
+  return improved;
+}
+
+// The end of round `round` (see the header). Round 0 (INPLACE false)
+// reads the caller's state (vin, pin, fin) and writes every entry of the
+// outputs; later rounds (INPLACE) update the outputs in place, visiting
+// only the marked and frontier entries of the lanes that run, and add to
+// visits[0] the entries they visited and to visits[1] those of the lanes
+// that run.
+template <int OP, bool TRACK, bool INPLACE>
 __global__ void __launch_bounds__(kThreads, kFinishBlocksPerSM<TRACK>)
 finish_kernel(int n, int lanes, int round, int k, const float* __restrict__ vin,
               const int* __restrict__ pin, const uint8_t* __restrict__ fin, float* vout,
               int* pout, uint8_t* fout, Best<TRACK>* best, uint32_t* bitmap, uint32_t* fbits,
-              const int* __restrict__ flags, int* next_flags, const int* __restrict__ allowed,
-              int* sweeps, float* work, unsigned* counts, int nblocks) {
+              uint32_t* marks, const int* __restrict__ flags, int* next_flags,
+              const int* __restrict__ allowed, int* sweeps, float* work, unsigned* counts,
+              int nblocks, unsigned long long* visits) {
   extern __shared__ int s_lane[];  // bit 0: runs now; bit 1: may run next; bit 2: improved
+  // in place, after the lanes' words (16-byte aligned): each thread's
+  // quad's next frontier bits, then the block's visited entries
+  uint32_t* s_next = reinterpret_cast<uint32_t*>(s_lane + ((lanes + 3) & ~3));
+  unsigned* s_visited = s_next + kThreads * kVertsPerThread;
+  if (INPLACE && threadIdx.x == 0) *s_visited = 0;
   bool runs = false;
   for (int l = threadIdx.x; l < lanes; l += blockDim.x) {
     s_lane[l] = ((flags[l] != 0 && round < allowed[l]) ? 1 : 0) | (round + 1 < allowed[l] ? 2 : 0);
@@ -416,10 +546,8 @@ finish_kernel(int n, int lanes, int round, int k, const float* __restrict__ vin,
   }
   // a dead round: the outputs hold every lane's last round, its run flags
   // stay 0, and so do those of the rounds after it
-  if (!__syncthreads_or(runs) && round > 0) return;
+  if (!__syncthreads_or(runs) && INPLACE) return;
   const bool last = round + 1 == k;
-  const float* vcur = round == 0 ? vin : vout;
-  const int* pcur = round == 0 ? pin : pout;
   const Best<TRACK> ident = ident_word<OP, TRACK>();
   constexpr int kW = kWordsPer16<TRACK>;
   constexpr int kV = kVertsPerThread;
@@ -431,6 +559,7 @@ finish_kernel(int n, int lanes, int round, int k, const float* __restrict__ vin,
   const int groups = (lanes + 31) >> 5;
   const long long threads = static_cast<long long>(gridDim.x) * blockDim.x;
   bool any_bits = false;
+  unsigned visited = 0;  // entries this thread visited in place
   for (long long base = static_cast<long long>(blockIdx.x) * blockDim.x * kV; base < n;
        base += threads * kV) {
     const long long v0 = base + static_cast<long long>(threadIdx.x) * kV;
@@ -439,102 +568,217 @@ finish_kernel(int n, int lanes, int round, int k, const float* __restrict__ vin,
     for (int g = 0; g < groups; ++g) {
       uint32_t word[kV] = {0, 0, 0, 0};
       const int end = min(32, lanes - 32 * g);
-      for (int j0 = 0; j0 < end; j0 += kW) {
-        // vertex c's words of lanes 32g + j0 ... at at0 + c * lanes
-        Best<TRACK>* at0 = best + v0 * lanes + 32 * g + j0;
-        Best<TRACK> words[kV][kW];
-        // the words of lanes that do not run stay at the identity: unread
-        bool quad_runs = false;
-#pragma unroll
-        for (int cc = 0; cc < kW; ++cc)
-          if (j0 + cc < end && (s_lane[32 * g + j0 + cc] & 1)) quad_runs = true;
-        if (bvec && quad_runs) {
-#pragma unroll
-          for (int c = 0; c < kV; ++c)
-            if (c < m) load16<TRACK>(at0 + c * lanes, words[c]);
-        }
-        unsigned touched = 0;  // bit c: a word of vertex c to reset
-#pragma unroll
-        for (int cc = 0; cc < kW; ++cc) {
-          const int j = j0 + cc;
-          if (j >= end) break;
-          const int l = 32 * g + j;
-          const int st = s_lane[l];
-          const long long i0 = static_cast<long long>(l) * n + v0;
-          unsigned improved = 0;  // bit c: vertex v0 + c improved
-          if (m > 0 && (st & 1)) {
-            float val[kV];
-            int par[kV];
-            uint8_t fr[kV];
-            load4(vcur + i0, vec, m, val);
-            if constexpr (TRACK) load4(pcur + i0, vec, m, par);
+      if constexpr (INPLACE) {
+        // the lanes of this group that run, and may run next
+        const int sl = wl < end ? s_lane[32 * g + wl] : 0;
+        const uint32_t run = __ballot_sync(kFull, sl & 1);
+        const uint32_t next = __ballot_sync(kFull, sl & 2);
+        uint32_t fb[kV] = {0, 0, 0, 0};  // this round's frontier bits
+        if (lanes == 1) {
+          // no marks: the lane's quad of best words is one row, read whole
+          Best<TRACK> p[kV];
+          unsigned written = 0, was = 0, improved = 0;
+          if (m > 0 && (run & 1u)) {
+            const uint32_t bits = bitmap[v0 >> 5] >> (v0 & 31);
+            load_row<TRACK>(best + v0, m, p);
 #pragma unroll
             for (int c = 0; c < kV; ++c) {
-              fr[c] = 0;
-              if (c >= m) continue;
-              const Best<TRACK> p = bvec ? words[c][cc] : at0[c * lanes + cc];
-              if (!last && p != ident) {
-                touched |= 1u << c;
-                if (!bvec) at0[c * lanes + cc] = ident;
-              }
-              uint32_t key;
-              if constexpr (TRACK) {
-                key = static_cast<uint32_t>(p >> 32);
-              } else {
-                key = p;
-              }
-              const float b = from_key<OP>(key);
-              if (is_min<OP>() ? (b < val[c]) : (b > val[c])) {
-                val[c] = b;
-                if constexpr (TRACK) par[c] = static_cast<int>(p & 0xffffffffull);
-                fr[c] = 1;
-                improved |= 1u << c;
-              }
+              fb[c] = c < m ? (bits >> c) & 1u : 0u;
+              was |= fb[c] << c;
+              if (c < m && p[c] != ident) written |= 1u << c;
             }
-            store4(vout + i0, vec, m, val);
-            if constexpr (TRACK) store4(pout + i0, vec, m, par);
-            store4(fout + i0, vec, m, fr);
-          } else if (m > 0 && round == 0) {  // a lane that does not run keeps its state
-            float val[kV];
-            uint8_t fr[kV];
-            load4(vin + i0, vec, m, val);
-            store4(vout + i0, vec, m, val);
-            if constexpr (TRACK) {
-              int par[kV];
-              load4(pin + i0, vec, m, par);
-              store4(pout + i0, vec, m, par);
-            }
-            load4(fin + i0, vec, m, fr);
-            store4(fout + i0, vec, m, fr);
           }
-          if ((st & 1) && __any_sync(kFull, improved != 0) && wl == 0) atomicOr(&s_lane[l], 4);
-          if (st & 2) {
+          if (written | was) {
+            visited += m;
+            if (!last && written) reset_row<OP, TRACK>(best + v0, m, p);
+            improved = update_quad<OP, TRACK>(p, m, vec, vout + v0, pout + v0, fout + v0, was);
+            if (next & 1u) {
+#pragma unroll
+              for (int c = 0; c < kV; ++c) word[c] = (improved >> c) & 1u;
+            }
+          }
+          if (__any_sync(kFull, improved != 0) && wl == 0) atomicOr(&s_lane[0], 4);
+        } else {
+          // the lanes to visit for this quad: marked or on the frontier
+          const long long q = v0 >> 2;
+          uint32_t mk = 0;
+          if (m > 0) {
+            load4(fbits + static_cast<long long>(g) * n + v0, vec, m, fb);
+            mk = marks[static_cast<long long>(g) * quads(n) + q];
+          }
+          const uint32_t visit = (mk | fb[0] | fb[1] | fb[2] | fb[3]) & run;
+          visited += __popc(visit) * m;
+          // the warp's (quad, lane) pairs, one a thread at a time: pair i
+          // is the (i - first[t])-th lane of quad t, first[t] the pairs of
+          // the quads before t
+          uint32_t* nb = s_next + (threadIdx.x & ~31) * kV;  // the warp's next bits
+#pragma unroll
+          for (int c = 0; c < kV; ++c) nb[wl * kV + c] = 0;
+          unsigned incl = __popc(visit);  // pairs up to quad wl, inclusive
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const unsigned y = __shfl_up_sync(kFull, incl, o);
+            if (wl >= o) incl += y;
+          }
+          const unsigned total = __shfl_sync(kFull, incl, 31);
+          __syncwarp();
+          for (unsigned i = wl; i < ((total + 31) & ~31u); i += 32) {
+            int t = 0;  // the quad of pair i: the first with incl > i
+#pragma unroll
+            for (int step = 16; step > 0; step >>= 1)
+              if (__shfl_sync(kFull, incl, t + step - 1) <= i) t += step;
+            const unsigned t_visit = __shfl_sync(kFull, visit, t);
+            const unsigned t_first = __shfl_sync(kFull, incl, t) - __popc(t_visit);
+            uint32_t t_fb[kV];
+#pragma unroll
+            for (int c = 0; c < kV; ++c) t_fb[c] = __shfl_sync(kFull, fb[c], t);
+            if (i >= total) continue;
+            const int j = static_cast<int>(__fns(t_visit, 0, static_cast<int>(i - t_first) + 1));
+            const int l = 32 * g + j;
+            const long long tv0 = v0 + static_cast<long long>(t - wl) * kV;
+            const int tm = static_cast<int>(min(static_cast<long long>(kV), n - tv0));
+            Best<TRACK>* at0 = best + tv0 * lanes + l;
+            Best<TRACK> p[kV];
+            unsigned was = 0;
+#pragma unroll
+            for (int c = 0; c < kV; ++c) {
+              p[c] = c < tm ? at0[c * lanes] : ident;
+              was |= ((t_fb[c] >> j) & 1u) << c;
+            }
+            if (!last) {
+#pragma unroll
+              for (int c = 0; c < kV; ++c)
+                if (p[c] != ident) at0[c * lanes] = ident;
+            }
+            const long long i0 = static_cast<long long>(l) * n + tv0;
+            const unsigned improved =
+                update_quad<OP, TRACK>(p, tm, vec, vout + i0, pout + i0, fout + i0, was);
+            if (improved != 0) {
+              atomicOr(&s_lane[l], 4);
+              if ((next >> j) & 1u) {
+#pragma unroll
+                for (int c = 0; c < kV; ++c)
+                  if ((improved >> c) & 1u) atomicOr(&nb[t * kV + c], 1u << j);
+              }
+            }
+          }
+          __syncwarp();
+#pragma unroll
+          for (int c = 0; c < kV; ++c) word[c] = nb[wl * kV + c];
+          if (!last && m > 0) {
+            if (mk != 0) marks[static_cast<long long>(g) * quads(n) + q] = 0;
+            if ((word[0] ^ fb[0]) | (word[1] ^ fb[1]) | (word[2] ^ fb[2]) | (word[3] ^ fb[3]))
+              store4(fbits + static_cast<long long>(g) * n + v0, vec, m, word);
+          }
+        }
+      } else {
+        for (int j0 = 0; j0 < end; j0 += kW) {
+          // vertex c's words of lanes 32g + j0 ... at at0 + c * lanes
+          Best<TRACK>* at0 = best + v0 * lanes + 32 * g + j0;
+          Best<TRACK> words[kV][kW];
+          // the words of lanes that do not run stay at the identity: unread
+          bool quad_runs = false;
+#pragma unroll
+          for (int cc = 0; cc < kW; ++cc)
+            if (j0 + cc < end && (s_lane[32 * g + j0 + cc] & 1)) quad_runs = true;
+          if (bvec && quad_runs) {
 #pragma unroll
             for (int c = 0; c < kV; ++c)
-              if ((improved >> c) & 1u) word[c] |= 1u << j;
+              if (c < m) load16<TRACK>(at0 + c * lanes, words[c]);
+          }
+          unsigned touched = 0;  // bit c: a word of vertex c to reset
+#pragma unroll
+          for (int cc = 0; cc < kW; ++cc) {
+            const int j = j0 + cc;
+            if (j >= end) break;
+            const int l = 32 * g + j;
+            const int st = s_lane[l];
+            const long long i0 = static_cast<long long>(l) * n + v0;
+            unsigned improved = 0;  // bit c: vertex v0 + c improved
+            if (m > 0 && (st & 1)) {
+              float val[kV];
+              int par[kV];
+              uint8_t fr[kV];
+              load4(vin + i0, vec, m, val);
+              if constexpr (TRACK) load4(pin + i0, vec, m, par);
+#pragma unroll
+              for (int c = 0; c < kV; ++c) {
+                fr[c] = 0;
+                if (c >= m) continue;
+                const Best<TRACK> p = bvec ? words[c][cc] : at0[c * lanes + cc];
+                if (!last && p != ident) {
+                  touched |= 1u << c;
+                  if (!bvec) at0[c * lanes + cc] = ident;
+                }
+                uint32_t key;
+                if constexpr (TRACK) {
+                  key = static_cast<uint32_t>(p >> 32);
+                } else {
+                  key = p;
+                }
+                const float b = from_key<OP>(key);
+                if (is_min<OP>() ? (b < val[c]) : (b > val[c])) {
+                  val[c] = b;
+                  if constexpr (TRACK) par[c] = static_cast<int>(p & 0xffffffffull);
+                  fr[c] = 1;
+                  improved |= 1u << c;
+                }
+              }
+              store4(vout + i0, vec, m, val);
+              if constexpr (TRACK) store4(pout + i0, vec, m, par);
+              store4(fout + i0, vec, m, fr);
+            } else if (m > 0) {  // a lane that does not run keeps its state
+              float val[kV];
+              uint8_t fr[kV];
+              load4(vin + i0, vec, m, val);
+              store4(vout + i0, vec, m, val);
+              if constexpr (TRACK) {
+                int par[kV];
+                load4(pin + i0, vec, m, par);
+                store4(pout + i0, vec, m, par);
+              }
+              load4(fin + i0, vec, m, fr);
+              store4(fout + i0, vec, m, fr);
+            }
+            if ((st & 1) && __any_sync(kFull, improved != 0) && wl == 0) atomicOr(&s_lane[l], 4);
+            if (st & 2) {
+#pragma unroll
+              for (int c = 0; c < kV; ++c)
+                if ((improved >> c) & 1u) word[c] |= 1u << j;
+            }
+          }
+          // a lane that did not run left its words at the identity
+          if (bvec) {
+#pragma unroll
+            for (int c = 0; c < kV; ++c)
+              if ((touched >> c) & 1u) store16<TRACK>(at0 + c * lanes, ident);
           }
         }
-        // a lane that did not run left its words at the identity
-        if (bvec) {
-#pragma unroll
-          for (int c = 0; c < kV; ++c)
-            if ((touched >> c) & 1u) store16<TRACK>(at0 + c * lanes, ident);
-        }
+        if (!last && fbits != nullptr)
+          store4(fbits + static_cast<long long>(g) * n + v0, vec, m, word);
       }
-      if (!last && fbits != nullptr)
-        store4(fbits + static_cast<long long>(g) * n + v0, vec, m, word);
 #pragma unroll
       for (int c = 0; c < kV; ++c)
         if (word[c] != 0) on |= 1u << c;
     }
     if (!last) any_bits |= write_bitmap(bitmap, v0, m, on, wl);
   }
+  if (INPLACE) {
+    // a block's entries, its share of lanes x n (the lanes' state is on
+    // the card), fit 32 bits
+    visited = __reduce_add_sync(kFull, visited);
+    if (wl == 0 && visited != 0) atomicAdd(s_visited, visited);
+  }
   if (__syncthreads_or(any_bits) && threadIdx.x == 0) next_flags[lanes] = 1;
   for (int l = threadIdx.x; l < lanes; l += blockDim.x)
     if (s_lane[l] & 4) next_flags[l] = 1;
+  if (INPLACE && threadIdx.x == 0 && *s_visited != 0)
+    atomicAdd(visits, static_cast<unsigned long long>(*s_visited));
   if (blockIdx.x == 0 && threadIdx.x == 0) {
+    unsigned long long running = 0;
     for (int l = 0; l < lanes; ++l) {
       if (!(s_lane[l] & 1)) continue;
+      running += 1;
       sweeps[l] += 1;
       float sweep_work = 0.0f;
       unsigned* c = counts + static_cast<long long>(l) * nblocks;
@@ -544,6 +788,7 @@ finish_kernel(int n, int lanes, int round, int k, const float* __restrict__ vin,
       }
       work[l] = __fadd_rn(work[l], sweep_work);
     }
+    if (INPLACE) atomicAdd(visits + 1, running * static_cast<unsigned long long>(n));
   }
 }
 
@@ -572,34 +817,49 @@ void launch_multi(int lanes, int n, int k, const float* vin, const int* pin, con
                   void* const* dsts, void* const* ws, const long long* lens,
                   const long long* strides, const int* allowed, int* flags, int* sweeps,
                   float* work, void* best_words, uint32_t* bitmap, uint32_t* fbits,
-                  unsigned* counts, cudaStream_t st) {
+                  uint32_t* marks, unsigned* counts, unsigned long long* visits,
+                  cudaStream_t st) {
   Best<TRACK>* best = static_cast<Best<TRACK>*>(best_words);
   const int vt = tiles((n + kVertsPerThread - 1) / kVertsPerThread, kVertexTiles);
   const size_t lane_smem = static_cast<size_t>(lanes) * sizeof(int);
+  // the in-place finish's lanes' words, its threads' next bits and its
+  // count pass the default 48 KB of shared memory a block above 11,260 lanes
+  const size_t inplace_smem = static_cast<size_t>((lanes + 3) & ~3) * sizeof(int) +
+                              (kThreads * kVertsPerThread + 4) * sizeof(uint32_t);
+  if (inplace_smem > 48 * 1024)
+    cudaFuncSetAttribute(finish_kernel<OP, TRACK, true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(inplace_smem));
   prepare_kernel<OP, TRACK><<<vt, kThreads, lane_smem, st>>>(n, lanes, fin, allowed, best, bitmap,
-                                                            fbits, flags);
+                                                            fbits, marks, flags);
   for (int r = 0; r < k; ++r) {
     const int* flag = flags + static_cast<long long>(r) * (lanes + 1);
     int* next = flags + static_cast<long long>(r + 1) * (lanes + 1);
     const float* values = r == 0 ? vin : vout;
+    const bool mark = r > 0 && lanes > 1;
     for (int b = 0; b < nblocks; ++b) {
       const int* src = static_cast<const int*>(srcs[b]);
       const int* dst = static_cast<const int*>(dsts[b]);
       const float* w = static_cast<const float*>(ws[b]);
       const int et = tiles((lens[b] + kEdgesPerThread - 1) / kEdgesPerThread, kEdgeTiles);
-      if (strides[b] == 0) {
-        scatter_kernel<OP, TRACK, true, false><<<dim3(et, 1), kThreads, lane_smem, st>>>(
-            n, lanes, values, bitmap, fbits, src, dst, w, lens[b], 0, flag, allowed, r, best,
-            counts, nblocks, b);
-      } else {
-        scatter_kernel<OP, TRACK, true, true><<<dim3(et, lanes), kThreads, sizeof(unsigned), st>>>(
-            n, lanes, values, bitmap, fbits, src, dst, w, lens[b], strides[b], flag, allowed, r,
-            best, counts, nblocks, b);
-      }
+      const bool stacked = strides[b] != 0;
+      auto scatter = stacked ? (mark ? scatter_kernel<OP, TRACK, true, true, true>
+                                     : scatter_kernel<OP, TRACK, true, true, false>)
+                             : (mark ? scatter_kernel<OP, TRACK, true, false, true>
+                                     : scatter_kernel<OP, TRACK, true, false, false>);
+      scatter<<<dim3(et, stacked ? lanes : 1), kThreads, stacked ? sizeof(unsigned) : lane_smem,
+                st>>>(n, lanes, values, bitmap, fbits, src, dst, w, lens[b], strides[b], flag,
+                      allowed, r, best, marks, counts, nblocks, b);
     }
-    finish_kernel<OP, TRACK><<<vt, kThreads, lane_smem, st>>>(
-        n, lanes, r, k, vin, pin, fin, vout, pout, fout, best, bitmap, fbits, flag, next, allowed,
-        sweeps, work, counts, nblocks);
+    if (r == 0) {
+      finish_kernel<OP, TRACK, false><<<vt, kThreads, lane_smem, st>>>(
+          n, lanes, r, k, vin, pin, fin, vout, pout, fout, best, bitmap, fbits, marks, flag, next,
+          allowed, sweeps, work, counts, nblocks, visits);
+    } else {
+      finish_kernel<OP, TRACK, true><<<vt, kThreads, inplace_smem, st>>>(
+          n, lanes, r, k, vin, pin, fin, vout, pout, fout, best, bitmap, fbits, marks, flag, next,
+          allowed, sweeps, work, counts, nblocks, visits);
+    }
   }
 }
 
@@ -610,9 +870,9 @@ void launch_single(int n, const float* values, const int* src, const int* dst, c
   uint32_t* keys = reinterpret_cast<uint32_t*>(out);
   fill_kernel<OP><<<vt, kThreads, 0, st>>>(n, keys);
   const int et = tiles((e_len + kEdgesPerThread - 1) / kEdgesPerThread, kEdgeTiles);
-  scatter_kernel<OP, false, false, false><<<dim3(et, 1), kThreads, 0, st>>>(
+  scatter_kernel<OP, false, false, false, false><<<dim3(et, 1), kThreads, 0, st>>>(
       n, 1, values, nullptr, nullptr, src, dst, w, e_len, 0, nullptr, nullptr, 0, keys, nullptr,
-      0, 0);
+      nullptr, 0, 0);
   decode_kernel<OP><<<vt, kThreads, 0, st>>>(n, out);
 }
 
@@ -631,15 +891,20 @@ int relax_multi_max_lanes() { return kMaxLanes; }
 // 1) ints, counts: lanes * nblocks, sweeps: lanes, all zeroed by the
 // caller; work: lanes floats, each lane's starting total; best: lanes * n words of 8 bytes (track) or 4;
 // bitmap: ceil(n / 32) words; fbits: ceil(lanes / 32) * n words, or null
-// with one lane. Returns cudaGetLastError().
+// with one lane; marks: ceil(lanes / 32) * ceil(n / 4) words, or null
+// with one lane; visits: 2 counters the in-place rounds
+// add to (entries visited, entries of the lanes that ran). Returns
+// cudaGetLastError().
 int relax_multi_run(int op, int track, int lanes, int n, int k, const float* values,
                     const int* parent, const uint8_t* frontier, float* values_out,
                     int* parent_out, uint8_t* frontier_out, int nblocks, void* const* srcs,
                     void* const* dsts, void* const* ws, const long long* lens,
                     const long long* strides, const int* allowed, int* flags, int* sweeps,
                     float* work, void* best, uint32_t* bitmap, uint32_t* fbits,
-                    unsigned* counts, void* stream) {
-  if (lanes < 1 || lanes > kMaxLanes || (lanes > 1 && fbits == nullptr))
+                    uint32_t* marks, unsigned* counts, unsigned long long* visits,
+                    void* stream) {
+  if (lanes < 1 || lanes > kMaxLanes || (lanes > 1 && (fbits == nullptr || marks == nullptr)) ||
+      visits == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RELAX_MULTI_CASE(OPV)                                                                   \
@@ -647,11 +912,13 @@ int relax_multi_run(int op, int track, int lanes, int n, int k, const float* val
     if (track)                                                                                  \
       launch_multi<OPV, true>(lanes, n, k, values, parent, frontier, values_out, parent_out,    \
                               frontier_out, nblocks, srcs, dsts, ws, lens, strides, allowed,    \
-                              flags, sweeps, work, best, bitmap, fbits, counts, st);            \
+                              flags, sweeps, work, best, bitmap, fbits, marks, counts, visits,  \
+                              st);                                                              \
     else                                                                                        \
       launch_multi<OPV, false>(lanes, n, k, values, parent, frontier, values_out, parent_out,   \
                                frontier_out, nblocks, srcs, dsts, ws, lens, strides, allowed,   \
-                               flags, sweeps, work, best, bitmap, fbits, counts, st);           \
+                               flags, sweeps, work, best, bitmap, fbits, marks, counts, visits, \
+                               st);                                                             \
     break;
   switch (op) {
     RELAX_MULTI_CASE(MIN_PLUS)

@@ -18,9 +18,14 @@ lanes, a word of lane bits per vertex, so a shared block is read once for
 all lanes and its dst and w only for frontier sources; a warp merges
 equal-dst candidates before the one atomicMin; the finish writes fresh
 outputs, so the caller's tensors are read, never copied or written, and
-``parent`` is not touched unless parents are tracked. A sparse sweep, the
-main path's usual one, then costs little more than the prepare and finish
-passes over the lanes' state and one read of every src.
+``parent`` is not touched unless parents are tracked. A chunk's first
+round is the one dense pass over the lanes' state; later rounds update
+the outputs in place, and their scatter marks, per lane and quad of
+vertices, where it first wrote a best word (with one lane the finish
+reads the best words themselves), so their finish visits only the marked
+and frontier entries of the lanes that run. A sparse sweep,
+the main path's usual one, then costs little more than one read of
+every src and of the frontier's packed bits.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from repro_torch.kernels.edge_relax.ref import ops_for
 from repro_torch.kernels.edge_relax_multi.ref import relax_multi_ref
 
 
-def _check_inputs(values, parent, frontier, blocks, num_nodes, k, work):
+def _check_inputs(values, parent, frontier, blocks, num_nodes, k, work,
+                  visits):
     if k < 1:
         raise ValueError(f"fused sweep count k={k} must be >= 1")
     if values.dim() != 2 or values.shape[1] != num_nodes:
@@ -55,6 +61,11 @@ def _check_inputs(values, parent, frontier, blocks, num_nodes, k, work):
                              or work.device != values.device):
         raise ValueError(f"work must be float32 [{lanes}] on the state's "
                          f"device, got {work.dtype} {tuple(work.shape)}")
+    if visits is not None and (visits.shape != (2,)
+                               or visits.dtype != torch.int64
+                               or visits.device != values.device):
+        raise ValueError("visits must be int64 [2] on the state's device, "
+                         f"got {visits.dtype} {tuple(visits.shape)}")
     for src, dst, w in blocks:
         if not (src.shape == dst.shape == w.shape) or src.dim() not in (1, 2):
             raise ValueError("each block's src/dst/w must share a [E] or "
@@ -71,7 +82,7 @@ def _check_inputs(values, parent, frontier, blocks, num_nodes, k, work):
 
 def relax_multi(values, parent, frontier, blocks, allowed=None, *, op: str,
                 num_nodes: int, k: int, track_parents: bool = True,
-                work=None):
+                work=None, visits=None):
     """Up to ``min(k, allowed[lane])`` frontier-masked sweeps per lane.
 
     values/parent/frontier ``[S, N]`` f32/int32/bool; ``blocks`` a sequence
@@ -82,7 +93,11 @@ def relax_multi(values, parent, frontier, blocks, allowed=None, *, op: str,
     applies the meet, sets the parent where improved and frontier =
     improved. Each sweep's work (its blocks' active edges, summed in
     block order in f32) is added to the lane's total, one sweep at a
-    time, from ``work`` (f32 ``[S]``, default zeros). Returns new
+    time, from ``work`` (f32 ``[S]``, default zeros). The rounds after
+    the first update the outputs in place and visit only the entries that
+    can change (see the module's note); where ``visits`` (int64 ``[2]``)
+    is given, they add to it the entries they visited and the entries of
+    the lanes that ran (what a dense pass would visit). Returns new
     ``(values, parent, frontier, sweeps [S] int32, work [S] f32)``. The
     inputs are never modified: on the card the kernel
     reads them and writes fresh outputs. Without parent tracking the
@@ -90,14 +105,16 @@ def relax_multi(values, parent, frontier, blocks, allowed=None, *, op: str,
     caller's tensor itself, not a copy.
     """
     ops_for(op)
-    _check_inputs(values, parent, frontier, blocks, num_nodes, k, work)
+    _check_inputs(values, parent, frontier, blocks, num_nodes, k, work,
+                  visits)
     if values.device.type == "cpu":
         return relax_multi_ref(values, parent, frontier, blocks, allowed,
                                op=op, num_nodes=num_nodes, k=k,
-                               track_parents=track_parents, work=work)
+                               track_parents=track_parents, work=work,
+                               visits=visits)
     if values.device.type == "meta":
         return _meta.relax_multi(values, parent, frontier, blocks,
-                                 track_parents)
+                                 track_parents, visits)
     if values.device.type != "cuda":
         raise ValueError(f"relax_multi runs on cuda, cpu or meta tensors, "
                          f"not {values.device}")
@@ -117,19 +134,28 @@ def relax_multi(values, parent, frontier, blocks, allowed=None, *, op: str,
     nb = len(blocks)
     # one zeroed int32 scratch: run flags [k+1, S+1] (the last entry of a
     # row: some frontier bit is set), sweeps [S], counts [S, nb], work [S]
-    # (f32 zeros, or the caller's totals); and one unset one: the best
-    # words [S * N] (int64 when tracked), the vertex bitmap [ceil(N / 32)]
-    # and the lane bits [ceil(S / 32) * N] (with more than one lane)
+    # (f32 zeros, or the caller's totals) and, unless the caller counts
+    # them, the visit counters (int64 [2]); and one unset one: the best
+    # words [S * N] (int64 when tracked), the vertex bitmap [ceil(N / 32)],
+    # and, with more than one lane, the lane bits [ceil(S / 32) * N] and
+    # the marks [ceil(S / 32) * ceil(N / 4)] (a word of lane bits per group
+    # of 32 lanes and quad of vertices), which the kernel zeroes
     rows = (k + 1) * (lanes + 1)
     counts_at = rows + lanes
     work_at = counts_at + lanes * nb
-    zeroed = torch.zeros(work_at + lanes, dtype=torch.int32, device=dev)
+    visits_at = (work_at + lanes + 1) // 2 * 2                     # 8 B
+    zeroed = torch.zeros(visits_at + (4 if visits is None else 0),
+                         dtype=torch.int32, device=dev)
     if work is not None:
-        zeroed[work_at:].view(torch.float32).copy_(work)
+        zeroed[work_at:work_at + lanes].view(torch.float32).copy_(work)
+    if visits is None:
+        visits = zeroed[visits_at:].view(torch.int64)
     bitmap_at = lanes * num_nodes * (2 if track_parents else 1)
     fbits_at = (bitmap_at + (num_nodes + 31) // 32 + 3) // 4 * 4  # 16 B
     fbits_len = (lanes + 31) // 32 * num_nodes if lanes > 1 else 0
-    unset = torch.empty(fbits_at + fbits_len, dtype=torch.int32, device=dev)
+    marks_at = fbits_at + fbits_len
+    marks_len = (lanes + 31) // 32 * ((num_nodes + 3) // 4) if lanes > 1 else 0
+    unset = torch.empty(marks_at + marks_len, dtype=torch.int32, device=dev)
     values_out = torch.empty_like(values)
     frontier_out = torch.empty_like(frontier)
     if track_parents:
@@ -159,10 +185,13 @@ def relax_multi(values, parent, frontier, blocks, allowed=None, *, op: str,
             zeroed[rows:counts_at].data_ptr(), zeroed[work_at:].data_ptr(),
             unset.data_ptr(), unset[bitmap_at:].data_ptr(),
             unset[fbits_at:].data_ptr() if fbits_len else None,
-            zeroed[counts_at:work_at].data_ptr(), stream)
+            unset[marks_at:].data_ptr() if fbits_len else None,
+            zeroed[counts_at:work_at].data_ptr(),
+            visits.data_ptr(), stream)
     _build.check(lib, rc, "relax_multi")
     return (values_out, parent_out if track_parents else parent, frontier_out,
-            zeroed[rows:counts_at], zeroed[work_at:].view(torch.float32))
+            zeroed[rows:counts_at],
+            zeroed[work_at:work_at + lanes].view(torch.float32))
 
 
 relax_multi.launches = 0

@@ -6,7 +6,12 @@ sweeps with early exit on an empty frontier. A lane that stops keeps its
 state and counts no more sweeps or work while the others run on. Each
 sweep's work is the f32 sum, in block order, of each block's count of
 active non-padding edges — the reference engine's grouping — and is
-added to the lane's total one sweep at a time.
+added to the lane's total one sweep at a time. It also reckons the
+kernel's visit counts: in each round after the first in which a lane
+runs, the kernel's finish visits a running lane's quad of vertices (four
+consecutive vertices, the last one short) where the round's scatter
+wrote a best word into the quad or the lane's frontier holds one of its
+vertices.
 """
 
 from __future__ import annotations
@@ -42,7 +47,10 @@ def lane_edges(blocks, lanes: int):
 def _sweep(combine, is_min, ident, num_nodes, nblocks, values, parent,
            frontier, src, dst, w, block_id, track_parents):
     """One frontier-masked sweep on every lane: (values, parent, improved,
-    work), work f32 [S] summed over blocks in block order."""
+    work, written), work f32 [S] summed over blocks in block order and
+    written [S, N] where the kernel's scatter writes a best word: with
+    parents tracked wherever an active edge lands (a packed word with any
+    src beats the identity's), else where the best beats the identity."""
     lanes = values.shape[0]
     real = dst < num_nodes
     active = frontier.gather(1, src) & real
@@ -67,20 +75,30 @@ def _sweep(combine, is_min, ident, num_nodes, nblocks, values, parent,
     for b in range(nblocks):
         work = work + counts[:, b].float()
     if not track_parents:
-        return new_values, parent, improved, work
+        written = (best[:, :num_nodes] < ident) if is_min \
+            else (best[:, :num_nodes] > ident)
+        return new_values, parent, improved, work, written
     is_win = active & (cand == best.gather(1, seg))
     winner = torch.full((lanes * (num_nodes + 1),), INT_MAX,
                         dtype=torch.int64, device=values.device)
     winner.scatter_reduce_(0, flat, torch.where(is_win, src, INT_MAX)
                            .reshape(-1), reduce="amin")
-    winner = winner.view(lanes, num_nodes + 1)[:, :num_nodes].int()
-    new_parent = torch.where(improved, winner, parent)
-    return new_values, new_parent, improved, work
+    winner = winner.view(lanes, num_nodes + 1)[:, :num_nodes]
+    new_parent = torch.where(improved, winner.int(), parent)
+    return new_values, new_parent, improved, work, winner < INT_MAX
+
+
+def _quads(mask, num_nodes):
+    """``mask`` [S, N] bool folded to [S, ceil(N / 4)]: any of a quad."""
+    pad = -num_nodes % 4
+    if pad:
+        mask = torch.cat([mask, mask.new_zeros(mask.shape[0], pad)], 1)
+    return mask.view(mask.shape[0], -1, 4).any(2)
 
 
 def relax_multi_ref(values, parent, frontier, blocks, allowed=None, *,
                     op: str, num_nodes: int, k: int,
-                    track_parents: bool = True, work=None):
+                    track_parents: bool = True, work=None, visits=None):
     """``min(k, allowed)`` sweeps per lane with early exit.
 
     values/parent/frontier ``[S, N]`` (f32/int32/bool); ``blocks`` as in
@@ -88,6 +106,9 @@ def relax_multi_ref(values, parent, frontier, blocks, allowed=None, *,
     (default ``k``); ``work`` the lanes' f32 ``[S]`` totals each sweep
     adds to (default zeros). Returns new ``(values, parent, frontier,
     sweeps [S] int32, work [S] f32)``; the inputs are not modified.
+    Where ``visits`` (int64 ``[2]``) is given, the rounds after the first
+    add to it in place the entries the kernel's finish visits (see the
+    module's note) and the running lanes' entries, ``N`` a lane.
     """
     combine, reduce_kind, ident = ops_for(op)
     is_min = reduce_kind == "min"
@@ -101,14 +122,21 @@ def relax_multi_ref(values, parent, frontier, blocks, allowed=None, *,
     sweeps = torch.zeros(lanes, dtype=torch.int32, device=dev)
     work = (torch.zeros(lanes, dtype=torch.float32, device=dev)
             if work is None else work.clone())
+    sizes = torch.full((-(-num_nodes // 4),), 4, dtype=torch.int64,
+                       device=dev)
+    sizes[-1] = num_nodes - 4 * (sizes.numel() - 1)
     for s in range(k):
         run = (s < cap) & frontier.any(1)
         if not bool(run.any()):
             break
-        vals, par, improved, dw = _sweep(
+        vals, par, improved, dw, written = _sweep(
             combine, is_min, ident, num_nodes, len(blocks), values, parent,
             frontier, src, dst, w, block_id, track_parents)
         r = run.unsqueeze(1)
+        if visits is not None and s > 0:
+            seen = _quads(written | frontier, num_nodes) & r
+            visits += torch.stack([(seen.long() * sizes).sum(),
+                                   run.long().sum() * num_nodes])
         values = torch.where(r, vals, values)
         parent = torch.where(r, par, parent)
         frontier = torch.where(r, improved, frontier)

@@ -157,6 +157,17 @@ def _relax_case(case, name):
     if case in ("lanes33", "lanes40"):
         lanes = int(case[5:])
         blocks = [edges(n, 20_000, 5), _stacked(lanes, n, 300, 50, pad=20)]
+    elif case in ("sparse-lanes1", "sparse-lanes8", "sparse-lanes40",
+                  "sparse-lanes64"):
+        # n not a multiple of 4; lane 2 stops mid-chunk
+        n, lanes, k = 3001, int(case[12:]), 5
+        blocks = [skewed_edges(n, 6000, 12, pad=8),
+                  _stacked(lanes, n, 200, 120, pad=4)]
+    elif case == "sparse-dead-rounds":
+        # every lane stops well before the chunk's end
+        n, k = 2999, 64
+        blocks = [edges(n, 4000, 13, pad=8),
+                  _stacked(lanes, n, 100, 130, sort=True)]
     elif case in ("hub-sorted", "hub-unsorted"):
         n, lanes, k = 120_000, 2, 2
         blocks = [_hub(n, 50_000, 6, sort=case == "hub-sorted")]
@@ -177,6 +188,13 @@ def _relax_case(case, name):
     else:
         raise ValueError(case)
     vals, parent, fro = state(name, n, 11, lanes)
+    if case.startswith("sparse"):
+        # a few sources a lane, so later rounds change few entries
+        fro = np.random.default_rng(lanes).random((lanes, n)) < 0.01
+        allowed = np.full(lanes, k, np.int32)
+        if lanes > 2:
+            allowed[1], allowed[2] = 0, 2
+        return (vals, parent, fro), blocks, allowed, k
     if case.startswith("hub"):
         vals[:, 1000:101_000] = np.float32(
             {"viterbi": 0.75, "sswp": 0.75}.get(name, 1.0))
@@ -189,7 +207,9 @@ def _relax_case(case, name):
 
 RELAX_DESIGN_CASES = ("lanes33", "lanes40", "hub-sorted", "hub-unsorted",
                       "sorted", "unsorted", "stacked-only", "shared+2stacked",
-                      "all-padding")
+                      "all-padding", "sparse-lanes1", "sparse-lanes8",
+                      "sparse-lanes40", "sparse-lanes64",
+                      "sparse-dead-rounds")
 
 
 @pytest.mark.cuda
@@ -202,7 +222,11 @@ def test_cuda_relax_multi_design(cuda_device, case, name, track):
     groups of lane bits), a hub of 10^5 equal candidates (the smallest src
     wins), dst-sorted and unsorted blocks, stacked blocks only, shared plus
     two stacked groups, all-padding blocks and lanes, a lane allowed 0 and
-    a capped one; and the inputs are unmodified after the call."""
+    a capped one; and the inputs are unmodified after the call. The
+    ``sparse`` cases start from a sparse frontier, so the in-place rounds
+    visit few entries: 1, 8, 40 and 64 lanes over n not a multiple of 4,
+    a lane stopped mid-chunk, and a chunk whose later rounds are dead.
+    The in-place rounds' visit counts equal the plain version's."""
     st, blocks, allowed, k = _relax_case(case, name)
     st = _on(cuda_device, *st)
     blocks = [_on(cuda_device, *b) for b in blocks]
@@ -211,12 +235,19 @@ def test_cuda_relax_multi_design(cuda_device, case, name, track):
         t.clone() for b in blocks for t in b]
     kw = dict(op=KERNEL_OP_FOR[name], num_nodes=st[0].shape[1], k=k,
               track_parents=track)
-    got = relax_multi(*st, blocks, allowed, **kw)
+    visits = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    got = relax_multi(*st, blocks, allowed, visits=visits, **kw)
     torch.cuda.synchronize()
     after = [*st, allowed] + [t for b in blocks for t in b]
     for b, a in zip(before, after):
         assert torch.equal(b, a), "an input was modified"
-    want = relax_multi_ref(*st, blocks, allowed, **kw)
+    want_visits = torch.zeros_like(visits)
+    want = relax_multi_ref(*st, blocks, allowed, visits=want_visits, **kw)
+    assert visits.tolist() == want_visits.tolist()
+    if case.startswith("sparse"):
+        assert 0 < want_visits[0] < want_visits[1] // 4
+        if case == "sparse-dead-rounds":
+            assert int(got[3].max()) < k
     for part, g, r in zip(("values", "parent", "frontier", "sweeps", "work"),
                           got, want):
         assert g.dtype == r.dtype and g.shape == r.shape, part
@@ -1075,7 +1106,7 @@ def test_cuda_relax_multi_wide_lanes(cuda_device, lanes, track):
     """The CommonGraph cell's launch shape at 32, 33 and 64 lanes (one and
     two words of lane bits per vertex): a shared block plus a stacked Δ
     block with masked trailing lanes, k = 3, bit for bit against the
-    plain version."""
+    plain version, the in-place rounds' visit counts included."""
     n = 20_000
     shared = _on(cuda_device, *skewed_edges(n, 120_000, 21, pad=32))
     stacked = _on(cuda_device, *_stacked(lanes, n, 400, 22, sort=True, pad=8,
@@ -1084,8 +1115,12 @@ def test_cuda_relax_multi_wide_lanes(cuda_device, lanes, track):
     allowed = torch.full((lanes,), 3, dtype=torch.int32, device=cuda_device)
     allowed[lanes // 2] = 1
     kw = dict(op="min_plus", num_nodes=n, k=3, track_parents=track)
-    got = relax_multi(*st, [shared, stacked], allowed, **kw)
-    want = relax_multi_ref(*st, [shared, stacked], allowed, **kw)
+    visits = torch.zeros(2, dtype=torch.int64, device=cuda_device)
+    got = relax_multi(*st, [shared, stacked], allowed, visits=visits, **kw)
+    want_visits = torch.zeros_like(visits)
+    want = relax_multi_ref(*st, [shared, stacked], allowed,
+                           visits=want_visits, **kw)
+    assert visits.tolist() == want_visits.tolist()
     for part, g, r in zip(("values", "parent", "frontier", "sweeps", "work"),
                           got, want):
         if g.dtype == torch.float32:

@@ -230,6 +230,54 @@ def test_relax_multi_work_is_summed_per_block_in_f32():
     assert float(got[4][0]) == float(active)
 
 
+# A chain 0 -> 1 -> 2 -> 5 and an edge 3 -> 4 over 6 vertices (quads
+# {0..3} and {4, 5}), a padding edge last; lane 0 starts from vertex 0,
+# lane 1 from vertex 3. Round 0 is dense and counts nothing. Round 1:
+# lane 0 reaches 2 from its frontier {1} (quad 0: 4 entries), lane 1's
+# frontier {4} has no out-edge (quad 1: 2 entries). Round 2: lane 0 only,
+# frontier {2} in quad 0 and 5 reached in quad 1 (6 entries). Round 3:
+# lane 0's frontier {5} (quad 1: 2 entries). Round 4 is dead. A dense
+# pass would visit 6 entries of each lane that runs.
+VISIT_CASES = {
+    # (k, allowed): [visited, entries]
+    (1, (1, 1)): [0, 0],
+    (3, (3, 3)): [4 + 2 + 6, 2 * 6 + 6],
+    (5, (5, 5)): [4 + 2 + 6 + 2, 2 * 6 + 6 + 6],
+    (3, (3, 1)): [4 + 6, 6 + 6],          # lane 1 stops after round 0
+}
+
+
+@pytest.mark.parametrize("track", (True, False))
+@pytest.mark.parametrize("k,allowed", sorted(VISIT_CASES))
+def test_relax_multi_visit_counts_on_a_hand_worked_graph(k, allowed, track):
+    """The plain version's visit counts: in each round after the first, a
+    running lane's quads of 4 vertices (the last one short) that the
+    round's candidates reached or its frontier holds, and N entries of
+    each running lane; added to the counters the caller gives."""
+    n = 6
+    src, dst, w = _t(np.array([0, 1, 2, 3, 0], np.int32),
+                     np.array([1, 2, 5, 4, n], np.int32),
+                     np.ones(5, np.float32))
+    vals = torch.full((2, n), np.inf, dtype=torch.float32)
+    vals[0, 0] = vals[1, 3] = 0.0
+    fro = vals == 0.0
+    parent = torch.full((2, n), -1, dtype=torch.int32)
+    visits = torch.tensor([100, 200], dtype=torch.int64)
+    got = relax_multi(vals, parent, fro, [(src, dst, w)],
+                      torch.tensor(allowed, dtype=torch.int32),
+                      op="min_plus", num_nodes=n, k=k, track_parents=track,
+                      visits=visits)
+    want = VISIT_CASES[(k, allowed)]
+    assert visits.tolist() == [100 + want[0], 200 + want[1]]
+    plain = relax_multi(vals, parent, fro, [(src, dst, w)],
+                        torch.tensor(allowed, dtype=torch.int32),
+                        op="min_plus", num_nodes=n, k=k,
+                        track_parents=track)
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+    assert got[3].tolist() == [min(k, 4), min(k, allowed[1], 2)]
+
+
 def test_relax_multi_rejects_bad_inputs():
     vals, parent, fro = _t(*_state("sssp", 8, 0, 2))
     blk = _t(*_edges(8, 10, 0))
@@ -248,6 +296,10 @@ def test_relax_multi_rejects_bad_inputs():
     with pytest.raises(ValueError, match="cuda, cpu or meta"):
         relax_multi(*elsewhere(vals, parent, fro), [elsewhere(*blk)], k=1,
                     **kw)
+    for visits in (torch.zeros(2, dtype=torch.int32),
+                   torch.zeros(3, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="visits"):
+            relax_multi(vals, parent, fro, [blk], k=1, visits=visits, **kw)
     before = relax_multi.launches
     relax_multi(vals, parent, fro, [blk], k=2, **kw)
     assert relax_multi.launches == before

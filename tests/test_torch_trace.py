@@ -29,6 +29,9 @@ from repro_torch.graph import engine, make_evolving_sequence  # noqa: E402
 from repro_torch.graph.edgeset import EdgeBlock, EdgeView  # noqa: E402
 from repro_torch.graph.semiring import SSSP  # noqa: E402
 from repro_torch.graph.stability import seed_state  # noqa: E402
+from repro_torch.kernels.edge_relax_multi.ref import (  # noqa: E402
+    relax_multi_ref,
+)
 from repro_torch.launch.mesh import make_snapshot_mesh  # noqa: E402
 from repro_torch.runtime import trace  # noqa: E402
 
@@ -249,6 +252,48 @@ def test_attempted_edges_are_real_edges_times_lane_sweeps():
     assert counts["engine.sweeps"] == int(sweeps.max())
 
 
+@pytest.mark.parametrize("launch", ("fixpoint", "batched"))
+def test_finish_visit_counters_add_up_over_chunks(monkeypatch, launch):
+    """``relax.finish_visited`` and ``relax.finish_entries`` are the sums,
+    over a fixpoint's chunks, of the visit counts the plain version
+    reckons for each chunk on its own (a chunk's first round counts in
+    neither); off, the engine asks the kernel for no counts."""
+    real = engine.relax_multi
+    chunks = []
+
+    def counted(values, parent, frontier, blocks, allowed=None, **kw):
+        want = torch.zeros(2, dtype=torch.int64)
+        relax_multi_ref(values, parent, frontier, blocks, allowed,
+                        **{**kw, "visits": want})
+        chunks.append((kw.get("visits") is not None, kw["k"], want))
+        return real(values, parent, frontier, blocks, allowed, **kw)
+
+    monkeypatch.setattr(engine, "relax_multi", counted)
+
+    def run():
+        if launch == "fixpoint":
+            view = EdgeView((_block(*edges(200, 1500, 5, pad=24)),), 200)
+            return engine.run_to_fixpoint(view, SSSP, 0, fused_k=None)
+        n, values, parent, shared, delta, lane_valid = _stacked_launch()
+        return engine.incremental_additions_batched(
+            n, SSSP, values, parent, (shared,), (delta,),
+            lane_valid=lane_valid)
+
+    run()
+    assert chunks and not any(asked for asked, _, _ in chunks)
+    chunks.clear()
+    with trace.recording():
+        run()
+    counts = trace.totals()["counts"]
+    fixpoint = [(k, want) for asked, k, want in chunks if asked]
+    assert len(fixpoint) >= 2 and max(k for k, _ in fixpoint) > 1
+    visited = sum(int(want[0]) for _, want in fixpoint)
+    entries = sum(int(want[1]) for _, want in fixpoint)
+    assert 0 < visited < entries
+    assert counts["relax.finish_visited"] == visited
+    assert counts["relax.finish_entries"] == entries
+
+
 def test_real_edges_are_reckoned_once_a_block():
     """A block's real-edge count is reckoned on its first recorded
     fixpoint and kept while the block lives: a second fixpoint over it
@@ -411,7 +456,8 @@ TOTALS = dict(
             "engine.active_edges": 1500, "engine.attempted_edges": 6000,
             "shard.copied_bytes": 4 * 192 * 2**20,
             "shard.broadcast_device_ns": 4 * 500_000,
-            "engine.shard_rounds": 400, "engine.idle_shard_rounds": 20})
+            "engine.shard_rounds": 400, "engine.idle_shard_rounds": 20,
+            "relax.finish_visited": 300, "relax.finish_entries": 4000})
 ZERO = dict(
     spans={"engine.launch": dict(count=0, total_s=0.0, self_s=0.0),
            "engine.flag_read": dict(count=0, total_s=0.0, self_s=0.0),
@@ -420,7 +466,8 @@ ZERO = dict(
             "engine.launched_sweeps": 0,
             "engine.active_edges": 0, "engine.attempted_edges": 0,
             "shard.copied_bytes": 0, "shard.broadcast_device_ns": 0,
-            "engine.shard_rounds": 0, "engine.idle_shard_rounds": 0})
+            "engine.shard_rounds": 0, "engine.idle_shard_rounds": 0,
+            "relax.finish_visited": 0, "relax.finish_entries": 0})
 
 
 def _metric(name):
@@ -440,6 +487,7 @@ def _metric(name):
     ("xcard_mib_per_step", 192.0),
     ("shard_exchange_ms", 0.5),
     ("idle_shard_pct", 5.0),
+    ("finish_visit_pct", 7.5),
 ])
 def test_metric_reads_the_program_totals(name, want, monkeypatch):
     """Each of the benchmark's readers of ``trace.totals()`` reads
